@@ -1,0 +1,124 @@
+"""State carried across from the JAX package, as NumPy arrays and plain dicts.
+
+The system has no learned weights; what both packages must share is
+configuration and state. Everything here takes and gives NumPy arrays /
+plain Python containers (a caller holding JAX objects converts them with
+``dataclasses.asdict`` / ``np.asarray`` first — this package never sees a JAX
+type). Layouts are the JAX package's: ``(B, 4, 3)`` levers and feet, leg
+order ``[RL, FL, RR, FR]``, solution fields ``(B, 12)`` / ``(B, 24)``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from quadruped_control_tpu_torch import config as _config
+from quadruped_control_tpu_torch import resolve_device
+from quadruped_control_tpu_torch.solver.ipm import IPMSolution
+from quadruped_control_tpu_torch.utils.scenarios import ScenarioBatch
+
+
+def _dataclass_from_dict(cls, d):
+    kwargs = {}
+    for f in dataclasses.fields(cls):
+        if f.name not in d:
+            continue
+        v = d[f.name]
+        sub = getattr(_config, type(f.default).__name__, None) \
+            if dataclasses.is_dataclass(f.default) else None
+        if sub is not None and isinstance(v, dict):
+            v = _dataclass_from_dict(sub, v)
+        elif isinstance(v, (list, tuple, np.ndarray)):
+            v = tuple(float(e) for e in v)
+        kwargs[f.name] = v
+    unknown = set(d) - {f.name for f in dataclasses.fields(cls)}
+    if unknown:
+        raise ValueError(f"{cls.__name__}: unknown fields {sorted(unknown)}")
+    return cls(**kwargs)
+
+
+def config_from_dict(d: dict) -> _config.ControlConfig:
+    """``dataclasses.asdict(cfg)`` of either package -> ControlConfig."""
+    return _dataclass_from_dict(_config.ControlConfig, d)
+
+
+def config_to_dict(cfg) -> dict:
+    return dataclasses.asdict(cfg)
+
+
+def _tensor(a, dtype, device):
+    if a is None:
+        return None
+    a = np.asarray(a)
+    if a.dtype == np.bool_:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype).to(device)
+
+
+def scenarios_from_numpy(d: dict, dtype=torch.float32,
+                         device=None) -> ScenarioBatch:
+    """Dict of NumPy arrays (the ScenarioBatch field names; ``mass``,
+    ``inertia_diag``, ``mu`` optional) -> ScenarioBatch on ``device``."""
+    device = resolve_device(device)
+    required = ScenarioBatch._fields[:10]
+    missing = [k for k in required if k not in d]
+    if missing:
+        raise ValueError(f"scenarios_from_numpy: missing fields {missing}")
+    vals = {k: _tensor(d.get(k), dtype, device)
+            for k in ScenarioBatch._fields}
+    vals["stance"] = vals["stance"].bool()
+    return ScenarioBatch(**vals)
+
+
+def solution_from_numpy(d: dict, dtype=torch.float32,
+                        device=None) -> IPMSolution:
+    """Dict of NumPy arrays (the IPMSolution field names) -> IPMSolution."""
+    device = resolve_device(device)
+    vals = {k: _tensor(d[k], dtype, device) for k in IPMSolution._fields
+            if k not in ("iterations", "converged")}
+    return IPMSolution(
+        iterations=torch.as_tensor(int(np.asarray(d["iterations"]))),
+        converged=torch.from_numpy(
+            np.ascontiguousarray(np.asarray(d["converged"], dtype=np.bool_))
+        ).to(device),
+        **vals)
+
+
+def warm_carry_from_numpy(x, s, z, st_prev: Optional[np.ndarray] = None,
+                          dtype=torch.float32, device=None):
+    """The warm carry of the fused solve, ``(x (B,12), s (B,24), z (B,24))``
+    in original units plus the stance mask ``st_prev (B,4)`` it was solved
+    under (float; -1 marks "no previous tick": every row resets cold).
+    Returns tensors ``(x, s, z, st_prev)`` on ``device``; pass the first
+    three as ``warm=`` and the last as ``warm_stance_prev=``."""
+    device = resolve_device(device)
+    x, s, z = (_tensor(a, dtype, device) for a in (x, s, z))
+    if st_prev is None:
+        st = -torch.ones((x.shape[0], 4), dtype=dtype, device=device)
+    else:
+        st = torch.as_tensor(np.asarray(st_prev, dtype=np.float64),
+                             dtype=dtype).to(device)
+    return x, s, z, st
+
+
+def to_numpy(obj):
+    """Inverse direction: a tensor, a NamedTuple of tensors (ScenarioBatch,
+    IPMSolution, QPData), a tuple/list/dict of them, or a config dataclass
+    -> NumPy arrays / plain dicts (None stays None)."""
+    if obj is None:
+        return None
+    if torch.is_tensor(obj):
+        return obj.detach().cpu().numpy()
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return dataclasses.asdict(obj)
+    if hasattr(obj, "_asdict"):
+        return {k: to_numpy(v) for k, v in obj._asdict().items()}
+    if isinstance(obj, dict):
+        return {k: to_numpy(v) for k, v in obj.items()}
+    if isinstance(obj, (tuple, list)):
+        return type(obj)(to_numpy(v) for v in obj)
+    return obj

@@ -1,0 +1,271 @@
+"""Build and load the hand-written CUDA kernels (csrc/) and launch them.
+
+The kernels are compiled at FIRST USE with ``nvcc`` for ``sm_90a`` from the
+sources in ``csrc/`` and nothing else: each ``.cu`` file is compiled to an
+object file by its own ``nvcc`` process (all started together), the objects
+are linked into one shared library with a plain C interface, and the library
+is loaded with ``ctypes``. The build lands in ``_build/<hash of the
+sources and flags>/`` beside this file (git-ignored). A failed build or a
+failed launch raises; nothing here gives way to the plain PyTorch versions.
+
+Each launcher below checks its tensors, allocates the outputs with
+``torch.empty``, launches on ``torch.cuda.current_stream()`` without
+synchronising, raises if the C entry reports a CUDA error, and adds one to
+its entry of ``launch_counts`` — there and nowhere else.
+
+Compile flags: ``-fmad=false`` keeps ``a*b + c`` as two rounded operations,
+so the kernels follow their plain PyTorch versions operation for operation
+and the Dekker error-free transformations stay exact; never
+``--use_fast_math`` (it breaks the division, square root and NaN handling the
+certificate rests on).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+_CSRC = Path(__file__).resolve().parent / "csrc"
+_BUILD_ROOT = Path(__file__).resolve().parent / "_build"
+_SOURCES = ("qct_assemble.cu", "qct_fused_barrier.cu", "qct_fused_polish.cu")
+_NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+               "-O3", "-fmad=false", "-Xcompiler", "-fPIC")
+
+# Launches of each kernel since the last reset (plain integers).
+launch_counts = {"qct_fused_solve": 0, "qct_assemble": 0}
+
+# The compiler's resource report (-Xptxas -v) of the build this process made
+# ("" when the library of an earlier build was loaded).
+last_build_log = ""
+
+_lib = None
+_lock = threading.Lock()
+
+
+def reset_launch_counts():
+    for k in launch_counts:
+        launch_counts[k] = 0
+
+
+class FusedParams(ctypes.Structure):
+    """Mirror of ``QctParams`` in csrc/qct_common.cuh (same order)."""
+
+    _fields_ = [
+        ("sl", ctypes.c_float * 3),
+        ("sa", ctypes.c_float * 3),
+        ("w2", ctypes.c_float),
+        ("swing_relax", ctypes.c_float),
+        ("tau", ctypes.c_float),
+        ("tol", ctypes.c_float),
+        ("prox_rho", ctypes.c_float),
+        ("iterations", ctypes.c_int),
+        ("polish", ctypes.c_int),
+        ("sweeps", ctypes.c_int),
+        ("refine", ctypes.c_int),
+        ("multi_swap", ctypes.c_int),
+        ("warm_mode", ctypes.c_int),   # 0 cold, 3 polish-only, 4 warm barrier
+        ("prox_steps", ctypes.c_int),
+        ("prox_iterations", ctypes.c_int),
+        ("prox_sweeps", ctypes.c_int),
+        ("prox_cold", ctypes.c_int),
+        ("ff_refine", ctypes.c_int),
+        ("equilibrated", ctypes.c_int),
+    ]
+
+
+def _nvcc() -> str:
+    exe = shutil.which("nvcc")
+    if exe is None:
+        cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+        if cand.exists():
+            exe = str(cand)
+    if exe is None:
+        raise RuntimeError(
+            "nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): the "
+            "CUDA kernels cannot be built on this machine")
+    return exe
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256()
+    for path in sorted(_CSRC.glob("*.cu*")):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    h.update(" ".join(_NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile csrc/ into ``_build/<hash>/libqct_kernels.so`` (if that file
+    is not there yet) and return its path."""
+    global last_build_log
+    out_dir = _BUILD_ROOT / _source_hash()
+    lib_path = out_dir / "libqct_kernels.so"
+    if lib_path.exists():
+        return lib_path
+    nvcc = _nvcc()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for src in _SOURCES:
+        obj = out_dir / (Path(src).stem + ".o")
+        cmd = [nvcc, *_NVCC_FLAGS, "-Xptxas", "-v", "-c",
+               str(_CSRC / src), "-o", str(obj)]
+        procs.append((src, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    logs, objs = [], []
+    failed = None
+    for src, obj, proc in procs:
+        out, _ = proc.communicate()
+        logs.append(f"== {src}\n{out}")
+        objs.append(str(obj))
+        if proc.returncode != 0 and failed is None:
+            failed = (src, out)
+    last_build_log = "\n".join(logs)
+    if failed is not None:
+        raise RuntimeError(f"nvcc failed on {failed[0]}:\n{failed[1]}")
+    tmp = out_dir / f"libqct_kernels.{os.getpid()}.tmp.so"
+    link = subprocess.run(
+        [nvcc, "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp), *objs],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+    os.replace(tmp, lib_path)
+    return lib_path
+
+
+def load():
+    """The loaded library (built first if needed)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            vp, ci = ctypes.c_void_p, ctypes.c_int
+            lib.qct_fused_solve.argtypes = [vp] * 15 + [
+                ci, ctypes.POINTER(FusedParams), vp]
+            lib.qct_fused_solve.restype = ci
+            lib.qct_assemble.argtypes = [vp] * 10 + [
+                ci, ctypes.POINTER(FusedParams), vp]
+            lib.qct_assemble.restype = ci
+            lib.qct_error_string.argtypes = [ci]
+            lib.qct_error_string.restype = ctypes.c_char_p
+            _lib = lib
+    return _lib
+
+
+def _f32(v: float) -> float:
+    """Round a Python float to float32 (what a kernel argument holds)."""
+    return float(torch.tensor(v, dtype=torch.float32))
+
+
+def _params(s_diag, w_diag, swing_relax, **kw) -> FusedParams:
+    p = FusedParams()
+    for k in range(3):
+        p.sl[k] = _f32(2.0 * s_diag[k])
+        p.sa[k] = _f32(s_diag[3 + k])
+    p.w2 = _f32(2.0 * w_diag)
+    p.swing_relax = swing_relax
+    for k, v in kw.items():
+        setattr(p, k, v)
+    return p
+
+
+def _require_cuda(name, a, k, B, device):
+    if (not torch.is_tensor(a) or a.device != device
+            or device.type != "cuda" or a.dtype != torch.float32
+            or tuple(a.shape) != (k, B) or not a.is_contiguous()):
+        raise ValueError(
+            f"{name}: the kernel takes a contiguous float32 CUDA tensor of "
+            f"shape ({k}, {B}) on {device}; got "
+            f"{getattr(a, 'dtype', type(a))} {tuple(getattr(a, 'shape', ()))} "
+            f"on {getattr(a, 'device', None)}")
+
+
+def _check(lib, rc, what):
+    if rc != 0:
+        msg = lib.qct_error_string(rc).decode()
+        raise RuntimeError(f"{what}: CUDA error {rc}: {msg}")
+
+
+def fused_solve(rp, bp, stp, mup, fminp, fmaxp, warm, sched, work=None):
+    """Launch the fused GRF-QP kernel (K1) once on ``(k, B)`` CUDA tensors.
+    ``sched`` is a ``solver.fused.FusedSchedule``; ``warm`` is (), (x, s, z)
+    or (x, s, z, st_prev). Returns (x, s, z, diag).
+
+    ``work``: optional int32 ``(2, B)`` CUDA tensor the kernel fills with
+    the barrier iterations and the polish sweeps each instance ran (a
+    certified lane leaves the sweep loop early) — for operation counts."""
+    device = rp.device
+    B = rp.shape[1]
+    for name, a, k in (("rp", rp, 12), ("bp", bp, 6), ("stp", stp, 4),
+                       ("mup", mup, 1), ("fminp", fminp, 1),
+                       ("fmaxp", fmaxp, 1)):
+        _require_cuda(name, a, k, B, device)
+    for name, a, k in zip(("xw", "sw", "zw", "st_prev"), warm,
+                          (12, 24, 24, 4)):
+        _require_cuda(name, a, k, B, device)
+    if work is not None and (
+            work.device != device or work.dtype != torch.int32
+            or tuple(work.shape) != (2, B) or not work.is_contiguous()):
+        raise ValueError(f"work: expected contiguous int32 (2, {B}) on "
+                         f"{device}")
+    lib = load()
+    psw = sched.polish_sweeps if sched.prox_sweeps is None else sched.prox_sweeps
+    p = _params(
+        sched.s_diag, sched.w_diag, sched.swing_relax, tau=sched.tau,
+        tol=sched.tol, prox_rho=sched.prox_rho, iterations=sched.iterations,
+        polish=int(sched.polish), sweeps=sched.polish_sweeps,
+        refine=sched.polish_refine, multi_swap=int(sched.polish_multi_swap),
+        warm_mode=len(warm), prox_steps=sched.prox_steps,
+        prox_iterations=sched.prox_iterations, prox_sweeps=psw,
+        prox_cold=int(sched.prox_cold), ff_refine=int(sched.ff_refine))
+    x = torch.empty((12, B), dtype=torch.float32, device=device)
+    s = torch.empty((24, B), dtype=torch.float32, device=device)
+    z = torch.empty((24, B), dtype=torch.float32, device=device)
+    diag = torch.empty((6, B), dtype=torch.float32, device=device)
+    wptr = [a.data_ptr() for a in warm] + [None] * (4 - len(warm))
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.qct_fused_solve(
+            rp.data_ptr(), bp.data_ptr(), stp.data_ptr(), mup.data_ptr(),
+            fminp.data_ptr(), fmaxp.data_ptr(), *wptr,
+            x.data_ptr(), s.data_ptr(), z.data_ptr(), diag.data_ptr(),
+            None if work is None else work.data_ptr(),
+            B, ctypes.byref(p), stream)
+    _check(lib, rc, "qct_fused_solve")
+    launch_counts["qct_fused_solve"] += 1
+    return x, s, z, diag
+
+
+def assemble(rp, bp, stp, mup, fminp, fmaxp, *, s_diag, w_diag, swing_relax,
+             equilibrated):
+    """Launch the assembly kernel (K2) once on ``(k, B)`` CUDA tensors.
+    Returns dense (Q (144,B), c (12,B), G (288,B), h (24,B))."""
+    device = rp.device
+    B = rp.shape[1]
+    for name, a, k in (("rp", rp, 12), ("bp", bp, 6), ("stp", stp, 4),
+                       ("mup", mup, 1), ("fminp", fminp, 1),
+                       ("fmaxp", fmaxp, 1)):
+        _require_cuda(name, a, k, B, device)
+    lib = load()
+    p = _params(s_diag, w_diag, swing_relax, equilibrated=int(equilibrated))
+    Q = torch.empty((144, B), dtype=torch.float32, device=device)
+    c = torch.empty((12, B), dtype=torch.float32, device=device)
+    G = torch.empty((288, B), dtype=torch.float32, device=device)
+    h = torch.empty((24, B), dtype=torch.float32, device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.qct_assemble(
+            rp.data_ptr(), bp.data_ptr(), stp.data_ptr(), mup.data_ptr(),
+            fminp.data_ptr(), fmaxp.data_ptr(),
+            Q.data_ptr(), c.data_ptr(), G.data_ptr(), h.data_ptr(),
+            B, ctypes.byref(p), stream)
+    _check(lib, rc, "qct_assemble")
+    launch_counts["qct_assemble"] += 1
+    return Q, c, G, h

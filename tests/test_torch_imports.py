@@ -1,0 +1,57 @@
+"""PyTorch port: the package and chip_smoke.py import neither jax nor the JAX
+package (checked on the syntax tree, so lazy imports count too)."""
+
+import ast
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parent.parent
+FILES = sorted(
+    str(p.relative_to(ROOT))
+    for p in (ROOT / "quadruped_control_tpu_torch").rglob("*.py")
+) + ["chip_smoke.py"]
+
+FORBIDDEN = ("jax", "jaxlib", "flax", "quadruped_control_tpu")
+
+
+def _imported_modules(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name, node.lineno
+        elif isinstance(node, ast.ImportFrom):
+            if node.level == 0 and node.module:
+                yield node.module, node.lineno
+        elif (isinstance(node, ast.Call)
+              and getattr(node.func, "id", getattr(node.func, "attr", ""))
+              in ("import_module", "__import__")
+              and node.args and isinstance(node.args[0], ast.Constant)):
+            yield str(node.args[0].value), node.lineno
+
+
+@pytest.mark.parametrize("rel", FILES)
+def test_no_jax_import(rel):
+    bad = [(m, ln) for m, ln in _imported_modules(ROOT / rel)
+           if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{rel} imports {bad}"
+
+
+def test_port_has_the_expected_modules():
+    have = set(FILES)
+    for rel in ("config.py", "convert.py", "kernels.py", "math/rotations.py",
+                "math/numerics.py", "ops/kinematics.py", "ops/dynamics.py",
+                "solver/ipm.py", "solver/fused.py", "solver/reference.py",
+                "solver/smallalg.py", "utils/ff.py", "utils/scenarios.py"):
+        assert f"quadruped_control_tpu_torch/{rel}" in have
+    csrc = ROOT / "quadruped_control_tpu_torch" / "csrc"
+    assert sorted(p.name for p in csrc.glob("*.cu")) == [
+        "qct_assemble.cu", "qct_fused_barrier.cu", "qct_fused_polish.cu"]
+
+
+def test_kernel_sources_never_use_fast_math():
+    text = (ROOT / "quadruped_control_tpu_torch" / "kernels.py").read_text()
+    flags = text.split("_NVCC_FLAGS = (")[1].split(")")[0]
+    assert "fast_math" not in flags and "-fmad=false" in flags
+    assert "sm_90a" in flags

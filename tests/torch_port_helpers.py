@@ -1,0 +1,105 @@
+"""Shared inputs for the PyTorch port's parity tests (tests/test_torch_*.py).
+
+The two packages cannot share a random stream (a ``torch.Generator`` and a
+JAX key give different numbers from one seed), so every parity test makes
+its inputs HERE, with NumPy from a seed, and hands the same arrays to the JAX
+function and to its counterpart in the port. The distributions are those of
+``utils/scenarios.py::grf_scenarios``.
+"""
+
+import numpy as np
+
+import jax.numpy as jnp
+import torch
+
+from quadruped_control_tpu.utils import scenarios as jscen
+from quadruped_control_tpu_torch import convert
+
+STANCE_PATTERNS = np.array(
+    [[True, True, True, True],
+     [True, False, False, True],
+     [False, True, True, False]])
+
+# Reference init pose feet (forward kinematics of q0 = [0, 1.61, -2.78] per
+# leg with the preset link lengths), float64.
+_Q0 = np.array([0.0, 1.61, -2.78])
+
+
+def _standing_feet():
+    l1, l2, l3 = 0.077, 0.211, 0.230
+    hx, hy = 0.196, 0.050
+    t1, t2, t3 = _Q0
+    feet = []
+    for sx, sy, sl in ((-1, 1, 1), (1, 1, 1), (-1, -1, -1), (1, -1, -1)):
+        a1, a2, a3 = sl * l1, -l2, -l3
+        x = a2 * np.sin(t2) + a3 * np.sin(t2 + t3) + sx * hx
+        y = (a1 * np.cos(t1) - a2 * np.sin(t1) * np.cos(t2)
+             - a3 * np.sin(t1) * np.cos(t2 + t3) + sy * hy)
+        z = (a1 * np.sin(t1) + a2 * np.cos(t1) * np.cos(t2)
+             + a3 * np.cos(t1) * np.cos(t2 + t3))
+        feet.append([x, y, z])
+    return np.array(feet)
+
+
+def rpy_to_matrix_np(rpy):
+    r, p, y = rpy[..., 0], rpy[..., 1], rpy[..., 2]
+    cr, sr, cp, sp, cy, sy = (np.cos(r), np.sin(r), np.cos(p), np.sin(p),
+                              np.cos(y), np.sin(y))
+    return np.stack([
+        np.stack([cy * cp, cy * sp * sr - sy * cr, cy * sp * cr + sy * sr], -1),
+        np.stack([sy * cp, sy * sp * sr + cy * cr, sy * sp * cr - cy * sr], -1),
+        np.stack([-sp, cp * sr, cp * cr], -1)], -2)
+
+
+def numpy_scenarios(seed, batch, randomize=False, dtype=np.float64):
+    """Dict of NumPy arrays with the ScenarioBatch field names; the three
+    stance patterns cycle so each is covered at any batch size."""
+    rng = np.random.default_rng(seed)
+    d = {}
+    d["R"] = rpy_to_matrix_np(rng.uniform(-0.25, 0.25, (batch, 3)))
+    d["R_d"] = np.broadcast_to(np.eye(3), (batch, 3, 3)).copy()
+    x = np.zeros((batch, 3))
+    x[:, 2] = rng.uniform(0.08, 0.32, batch)
+    d["x"] = x
+    d["xdot"] = 0.3 * rng.standard_normal((batch, 3))
+    d["w"] = 0.25 * rng.standard_normal((batch, 3))
+    d["xdot_d"] = 0.2 * rng.standard_normal((batch, 3))
+    d["w_d"] = 0.1 * rng.standard_normal((batch, 3))
+    x_d = np.zeros((batch, 3))
+    x_d[:, 2] = 0.26
+    d["x_d"] = x_d
+    d["feet"] = _standing_feet() + 0.01 * rng.standard_normal((batch, 4, 3))
+    d["stance"] = STANCE_PATTERNS[np.arange(batch) % 3]
+    if randomize:
+        d["mass"] = 11.0 * rng.uniform(0.8, 1.2, batch)
+        d["inertia_diag"] = (np.array([0.011253, 0.036203, 0.042673])
+                             * rng.uniform(0.8, 1.2, (batch, 3)))
+        d["mu"] = rng.uniform(0.5, 1.0, batch)
+    return {k: (v if v.dtype == np.bool_ else v.astype(dtype))
+            for k, v in d.items()}
+
+
+def jax_scenarios(d):
+    """The same arrays as a JAX ScenarioBatch."""
+    return jscen.ScenarioBatch(**{
+        k: (None if d.get(k) is None else jnp.asarray(d[k]))
+        for k in jscen.ScenarioBatch._fields})
+
+
+def torch_scenarios(d, dtype):
+    """The same arrays as the port's ScenarioBatch, on the CPU."""
+    return convert.scenarios_from_numpy(d, dtype=dtype, device="cpu")
+
+
+def objective_np(Q, c, x):
+    Q, c, x = (np.asarray(a, np.float64) for a in (Q, c, x))
+    return 0.5 * np.einsum("bi,bij,bj->b", x, Q, x) + np.einsum(
+        "bi,bi->b", c, x)
+
+
+def t2n(a):
+    return a.detach().cpu().numpy()
+
+
+TORCH_DTYPES = {"f32": torch.float32, "f64": torch.float64}
+NP_DTYPES = {"f32": np.float32, "f64": np.float64}
