@@ -12,9 +12,19 @@ the port's main path — ``solve_balance_qp_fused`` with the reference bench's
 schedule at B = 32768, fresh seeded inputs per repetition — checks the result
 (finite, converged fraction, float64 active-set oracle parity) and that the
 path went through the kernels (launch counters), and prints the kernels'
-times beside their bounds. Any failed phase ends the run with a non-zero exit
-code; nothing is caught and carried on. Without a CUDA device it exits with
-code 2 and prints no result.
+times beside their bounds.
+
+Then the second main path, the closed-loop whole-body tick (commander-pre K4
+-> GRF QP K1 -> physics substeps K5, sim/fused_tick.py): K4 and K5 against
+their plain versions at B = 4096 on synthetic mid-walk states (K4 over 8
+chained ticks with and without its options; K5 in three configurations with
+two poisoned lanes), 600 ticks of stand-up from the laying pose and 600 ticks
+of a 0.2 m/s trot at B = 4096 with behaviour limits and exactly 3 launches
+per tick (4 with the certification tail), the first ticks also through the
+plain versions, and ms per tick and per launch beside the bounds.
+
+Any failed phase ends the run with a non-zero exit code; nothing is caught and
+carried on. Without a CUDA device it exits with code 2 and prints no result.
 
 Output: progress lines, then the card's ``nvidia-smi`` name and power limit,
 one JSON line ``{"kernels": [...]}``, and as the LAST line
@@ -35,19 +45,42 @@ if not torch.cuda.is_available():
     sys.exit(2)
 
 from quadruped_control_tpu_torch import kernels  # noqa: E402
-from quadruped_control_tpu_torch.config import mit_cheetah_config  # noqa: E402
+from quadruped_control_tpu_torch.config import (  # noqa: E402
+    mit_cheetah_config,
+    mit_cheetah_physical_config,
+)
+from quadruped_control_tpu_torch.control import fused_commander as fcmd  # noqa: E402
+from quadruped_control_tpu_torch.control.commander import (  # noqa: E402
+    init_commander_carry,
+)
 from quadruped_control_tpu_torch.ops.dynamics import SWING_ROW_RELAX  # noqa: E402
+from quadruped_control_tpu_torch.sim import (  # noqa: E402
+    ContactConfig,
+    init_whole_body_state,
+    mit_cheetah_urdf_model,
+    mit_cheetah_whole_body_model,
+)
+from quadruped_control_tpu_torch.sim import fused_substep as fsub  # noqa: E402
+from quadruped_control_tpu_torch.sim import fused_tick as ftick  # noqa: E402
 from quadruped_control_tpu_torch.solver import fused as pf  # noqa: E402
 from quadruped_control_tpu_torch.solver.reference import (  # noqa: E402
     solve_qp_batch_oracle,
 )
-from quadruped_control_tpu_torch.utils.scenarios import grf_scenarios  # noqa: E402
+from quadruped_control_tpu_torch.utils.scenarios import (  # noqa: E402
+    commander_carry_walk,
+    grf_scenarios,
+    walk_carry_comps,
+    walk_state_comps,
+    whole_body_walk_states,
+)
 
 DEV = torch.device("cuda")
 SEED = 0
 B_CHECK = 4096
 B_MAIN = 32768
 REPS = 5
+B_TICK = 4096
+N_SUBSTEPS = 10
 # Published peaks of one H100 SXM (NVIDIA data sheet): float32 outside the
 # tensor cores, and HBM3 bandwidth.
 PEAK_F32_FLOPS = 67e12
@@ -519,10 +552,580 @@ def phase_main_path(cfg, gen):
                 launches=counts)
 
 
+# ---------------------------------------------------------------------------
+# The closed-loop tick: K4 -> K1 -> K5
+# ---------------------------------------------------------------------------
+
+def to_dev(a):
+    return torch.as_tensor(np.ascontiguousarray(a),
+                           dtype=torch.float32).to(DEV).contiguous()
+
+
+def state_comps(d):
+    """whole_body_walk_states dict -> float32 (58, B) tensor on the card."""
+    return to_dev(walk_state_comps(d))
+
+
+def carry_comps(c):
+    """commander_carry_walk dict -> float32 (95, B) tensor on the card."""
+    return to_dev(walk_carry_comps(c))
+
+
+# Operation counts of K4 and K5 (one per add, subtract, multiply, divide,
+# square root, compare/select and sinf/cosf/atan2f call), counted from the
+# loops of csrc/qct_commander.cuh and csrc/qct_substep.cuh.
+def ops_commander(contact_gate):
+    per_leg = (126 + 7          # sextic replan (21 x 3 products) + validity
+               + 49 + 60 + 6    # position, velocity on the sextic, masks
+               + 30 + 6 + 32    # R^T p, R^T v, hip-relative, IK
+               + 30 + 60 + 48   # Jacobian (6 trig), two adjugates, J J^T
+               + 96 + 72)       # J^-1 v with damped fallback, PD wrap chain
+    if contact_gate:
+        per_leg += 21 + 21 + 32 + 11   # end-of-swing target, its IK, gating
+    return (30 + 128 + 10       # world twist, FK (24 trig), latch and clock
+            + 220 + 24 + 220    # desired pose, gait schedule, footholds
+            + 4 * per_leg
+            + 280 + 30)         # PD accelerations, so3_log, SRB rhs, outputs
+
+
+_OPS_SUBSTEP = (24 + 30         # sinf/cosf of q, trunk bias
+                + 4 * 735       # per-leg RNEA sweep (3 joints out and back)
+                + 4 * 190 + 4 * 120   # foot and trunk-corner contact points
+                + 500 + 440)    # Schur solve; integration, Rodrigues, guard
+_OPS_FACTOR = 4 * 1240 + 900 + 320    # per-leg CRBA + D^-1, S, Cholesky inverse
+_OPS_TORQUE_MAP = 24 + 4 * 67
+
+
+def ops_substep(consts, n_substeps):
+    ops = n_substeps * _OPS_SUBSTEP
+    if consts.prefactor_kernel:
+        ops += _OPS_FACTOR
+    if consts.torque_qp:
+        ops += _OPS_TORQUE_MAP + (4 * 735 if consts.gravity_comp else 0)
+    return ops
+
+
+def bound_ms(nbytes, ops):
+    b_bytes = nbytes / PEAK_BYTES * 1e3
+    b_ops = ops / PEAK_F32_FLOPS * 1e3
+    return max(b_bytes, b_ops), "operations" if b_ops >= b_bytes else "bytes"
+
+
+_K4_NAMES = ("r", "b", "st", "mu", "fz_min", "fz_max", "tau_swing", "carry",
+             "q_ref")
+# K4 against its plain version, (rtol, atol) per continuous output. The same
+# statements in the same order on both sides; they differ where CUDA's
+# sinf/cosf/atan2f differ from PyTorch's in the last bits and where PyTorch
+# divides by a constant (a multiplication by the reciprocal on CUDA). b is
+# ~1e3 N (gains of 1e2..1e3 on pose errors), torques ~kp * angle error.
+_K4_TOLS = {"r": (1e-5, 1e-6), "b": (1e-4, 2e-3), "tau_swing": (1e-4, 2e-3),
+            "q_ref": (1e-5, 2e-5), "carry": (1e-5, 1e-5)}
+_K4_DISCRETE_CARRY = [0, 2, 3, 4, 5, 6, 91, 92, 93, 94]
+_K4_CONTINUOUS_CARRY = [1] + list(range(7, 91))
+# Lanes whose discrete outputs may differ (a lane within one ulp of the
+# phase / latch-window / gate threshold), per tick of 4096 lanes.
+_K4_DISCRETE_BUDGET = 4
+
+
+def hold_commander_to_plain(name, kern, plain):
+    """Fail unless K4's outputs agree with its plain version's: continuous
+    outputs within _K4_TOLS, discrete outputs (stance mask, standing latch,
+    prev_in_stance, initialized, valid) exactly, up to _K4_DISCRETE_BUDGET
+    listed lanes. Lanes with a discrete mismatch are left out of the
+    continuous comparison (their branches differ). Returns the largest
+    absolute error of a continuous output."""
+    k = dict(zip(_K4_NAMES, kern))
+    p = dict(zip(_K4_NAMES, plain))
+    bad = (k["st"] != p["st"]).any(0) | (
+        k["carry"][_K4_DISCRETE_CARRY] != p["carry"][_K4_DISCRETE_CARRY]
+    ).any(0)
+    lanes = torch.nonzero(bad).flatten().tolist()
+    if lanes:
+        log(f"  {name}: discrete outputs differ on lanes {lanes}")
+    if len(lanes) > _K4_DISCRETE_BUDGET:
+        fail(f"K4 {name}: {len(lanes)} lanes with different discrete outputs")
+    for nm in ("mu", "fz_min", "fz_max"):
+        if not torch.equal(k[nm], p[nm]):
+            fail(f"K4 {name}: {nm} differs")
+    good = ~bad
+    worst = 0.0
+    for nm, (rtol, atol) in _K4_TOLS.items():
+        a, b_ = k[nm], p[nm]
+        if nm == "carry":
+            a, b_ = a[_K4_CONTINUOUS_CARRY], b_[_K4_CONTINUOUS_CARRY]
+        a, b_ = a[:, good], b_[:, good]
+        err = (a - b_).abs().max().item()
+        worst = max(worst, err)
+        if not torch.allclose(a, b_, rtol=rtol, atol=atol):
+            fail(f"K4 {name}: {nm} max abs err {err:.3e} beyond rtol {rtol} "
+                 f"atol {atol}")
+    return worst
+
+
+def phase_commander_vs_plain(cfg):
+    log(f"== phase 5: K4 (commander-pre) vs its plain version on the card, "
+        f"B = {B_TICK}, 8 chained ticks per option set")
+    consts = fcmd.CommanderConsts(cfg, 1.0 / cfg.frequency)
+    worst = 0.0
+    for gate, sym in ((0.0, False), (0.01, True)):
+        carry = carry_comps(commander_carry_walk(SEED + 20, B_TICK, cfg))
+        crossed = dict(latch=0, gait_start=0, swing_edges=0, replans=0)
+        for t in range(8):
+            d = whole_body_walk_states(SEED + 30 + t, B_TICK, cfg)
+            state, cmd = state_comps(d), to_dev(d["cmd"].T)
+            kw = dict(contact_gate=gate, raibert_cmd_symmetric=sym)
+            kern = fcmd.commander_pre_packed(state, carry, cmd,
+                                             consts=consts, **kw)
+            plain = fcmd.commander_pre_plain(consts, state, carry, cmd, **kw)
+            torch.cuda.synchronize()
+            worst = max(worst, hold_commander_to_plain(
+                f"gate={gate} sym={sym} tick {t}", kern, plain))
+            new = kern[7]
+            crossed["latch"] += int(((new[0] > 0.5) & (carry[0] < 0.5)).sum())
+            crossed["gait_start"] += int(((new[1] >= 0) & (carry[1] < 0)).sum())
+            crossed["swing_edges"] += int(
+                ((new[2:6] < 0.5) & (carry[2:6] > 0.5)).sum())
+            crossed["replans"] += int((new[7:91] != carry[7:91]).any(0).sum())
+            carry = new   # both sides continue from the kernel's carry
+        log(f"  contact_gate={gate} raibert_cmd_symmetric={sym}: within "
+            f"tolerance over 8 ticks; crossed {crossed}")
+        check(all(v > 0 for v in crossed.values()),
+              "the ticks crossed the standing latch, the gait start, "
+              "stance->swing edges and replans")
+    log(f"  K4 worst abs err of a continuous output: {worst:.3e}")
+    return worst
+
+
+# K5 against its plain version after N_SUBSTEPS substeps: the plain version
+# runs the same physics as batched tensor operations in another order, and
+# the contact stiffness (3e4 N/m at h = 3.3e-4 s) amplifies round-off from
+# substep to substep. Poses (R, x, q, anchor): (rtol, atol); velocities:
+# (rtol, atol), per contact model. With anchor stiction (the main path's
+# model, and every whole tick) the largest velocity error seen is 3.3e-4, so
+# a term of the size of gravity's 0.03 per tick cannot hide. Regularized
+# Coulomb friction is a steep viscous term below the stiction velocity, which
+# amplifies round-off in a foot's slip velocity: the worst lane seen is off
+# by 1.9e-2 on a joint velocity of 5.3 after 10 substeps (35 of 4096 lanes
+# beyond 1e-3), and hold_substep_to_plain names it.
+_K5_POSE_TOL = (1e-4, 5e-5)
+_K5_VEL_TOL = {"anchor": (2e-4, 1e-3), "coulomb": (2e-3, 2e-2)}
+_POSE_ROWS = list(range(0, 12)) + list(range(30, 58))
+_VEL_ROWS = list(range(12, 30))
+
+
+def hold_substep_to_plain(name, kern, plain, tangential="anchor"):
+    worst = 0.0
+    for what, rows, (rtol, atol) in (
+            ("poses", _POSE_ROWS, _K5_POSE_TOL),
+            ("velocities", _VEL_ROWS, _K5_VEL_TOL[tangential])):
+        a, b_ = kern[rows], plain[rows]
+        diff = (a - b_).abs()
+        err = diff.max().item()
+        worst = max(worst, err)
+        if not torch.allclose(a, b_, rtol=rtol, atol=atol):
+            fail(f"K5 {name}: {what} max abs err {err:.3e} beyond rtol "
+                 f"{rtol} atol {atol}")
+        if what == "velocities" and tangential == "coulomb":
+            row, lane = divmod(int(diff.argmax().item()), diff.shape[1])
+            log(f"    {name}: worst velocity, row {_VEL_ROWS[row]} of lane "
+                f"{lane}: kernel {a[row, lane].item():.5f} plain "
+                f"{b_[row, lane].item():.5f}; lanes beyond the anchor "
+                f"model's atol of {_K5_VEL_TOL['anchor'][1]}: "
+                f"{int((diff.max(0).values > _K5_VEL_TOL['anchor'][1]).sum())}"
+                f" of {diff.shape[1]}")
+    return worst
+
+
+def substep_inputs(cfg, seed, torque_input):
+    rng = np.random.default_rng(seed)
+    B = B_TICK
+    state = state_comps(whole_body_walk_states(seed, B, cfg, on_ground=True))
+    if torque_input == "qp":
+        fw = rng.uniform(-5.0, 5.0, (12, B))
+        fw[2::3] = rng.uniform(10.0, 40.0, (4, B))
+        extras = (to_dev(fw), to_dev(rng.uniform(-3.0, 3.0, (12, B))),
+                  to_dev(rng.uniform(size=(4, B)) < 0.7))
+    else:
+        extras = (to_dev(rng.uniform(-8.0, 8.0, (12, B))),)
+    return state, extras
+
+
+def phase_substep_vs_plain(cfg):
+    log(f"== phase 6: K5 (substeps) vs its plain version on the card, "
+        f"B = {B_TICK}, {N_SUBSTEPS} substeps")
+    dt = 1.0 / cfg.frequency
+    worst = 0.0
+    stats = {}
+    for name, model_fn, contact, prefactor, torque_input, gc in (
+            ("qp + kernel factor + gravity_comp", mit_cheetah_whole_body_model,
+             ContactConfig(), "kernel", "qp", True),
+            ("tau + streamed factor, published-inertia model",
+             mit_cheetah_urdf_model, ContactConfig(), "xla", "tau", False),
+            ("qp + kernel factor, Coulomb contact",
+             mit_cheetah_whole_body_model,
+             ContactConfig(tangential="coulomb"), "kernel", "qp", False)):
+        model = model_fn(cfg)
+        stepper = fsub.make_fused_stepper(
+            model, cfg, contact, prefactor=prefactor,
+            torque_input=torque_input, gravity_comp=gc)
+        state, extras = substep_inputs(cfg, SEED + 50, torque_input)
+        kern = stepper.packed(state, *extras, dt, N_SUBSTEPS)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        plain = stepper.plain(state, *extras, dt, N_SUBSTEPS)
+        torch.cuda.synchronize()
+        plain_ms = (time.time() - t0) * 1e3
+        err = hold_substep_to_plain(name, kern, plain, contact.tangential)
+        worst = max(worst, err)
+        log(f"  {name}: within tolerance (max abs err {err:.3e}), every "
+            f"value finite: {bool(torch.isfinite(kern).all())}")
+        if not bool(torch.isfinite(kern).all()):
+            fail(f"K5 {name}: non-finite output")
+        stats[name] = dict(plain_ms=plain_ms)
+
+        # The guard: a NaN joint velocity freezes the lane for that substep
+        # (pose kept, velocity zeroed); a 1e6 one is clamped to 200. Neither
+        # leaks into a neighbouring lane.
+        bad = state.clone()
+        bad[18, 0] = float("nan")
+        bad[19, 1] = 1.0e6
+        k1 = stepper.packed(bad, *extras, dt / N_SUBSTEPS, 1)
+        p1 = stepper.plain(bad, *extras, dt / N_SUBSTEPS, 1)
+        ref1 = stepper.packed(state, *extras, dt / N_SUBSTEPS, 1)
+        torch.cuda.synchronize()
+        for nm, out in (("kernel", k1), ("plain", p1)):
+            frozen = (torch.equal(out[_POSE_ROWS, 0], bad[_POSE_ROWS, 0])
+                      and bool((out[_VEL_ROWS, 0] == 0).all()))
+            clamped = (bool(torch.isfinite(out[:, 1]).all())
+                       and out[_VEL_ROWS, 1].abs().max().item() <= 200.0
+                       and out[19, 1].item() > 100.0)
+            if not (frozen and clamped and bool(torch.isfinite(out).all())):
+                fail(f"K5 {name}: guard failed in the {nm} version (frozen "
+                     f"{frozen}, clamped {clamped})")
+        if not torch.equal(k1[:, 2:], ref1[:, 2:]):
+            fail(f"K5 {name}: a poisoned lane changed its neighbours")
+        kn = stepper.packed(bad, *extras, dt, N_SUBSTEPS)
+        pn = stepper.plain(bad, *extras, dt, N_SUBSTEPS)
+        torch.cuda.synchronize()
+        if not (bool(torch.isfinite(kn).all()) and torch.equal(
+                kn[:, 2:], kern[:, 2:])):
+            fail(f"K5 {name}: poisoned lanes after {N_SUBSTEPS} substeps")
+        hold_substep_to_plain(name + " (poisoned lanes)", kn[:, :1],
+                              pn[:, :1], contact.tangential)
+        log("    guard: the NaN lane froze for its substep, the 1e6 lane was "
+            "clamped to 200, the other lanes are bitwise unchanged")
+    return worst, stats
+
+
+def tick_vs_plain(name, tick, model, cfg, contact, state_p, carry_p, warm_p,
+                  cmd_p):
+    """One tick through the kernels and, on the same inputs, through the
+    plain versions: K4 outputs (levers, rhs, stance, ...), the QP at the
+    objective level, and the state after the substeps. Returns the kernels'
+    (state, carry, warm) and the QP launch's max |dx| against its plain
+    version."""
+    bal = cfg.balance
+    base = dict(s_diag=tuple(bal.s_diag), w_diag=float(bal.w_diag))
+    dt = tick.consts.dt
+    kern4 = tick.pre(state_p, carry_p, cmd_p)
+    plain4 = fcmd.commander_pre_plain(tick.consts, state_p, carry_p, cmd_p)
+    torch.cuda.synchronize()
+    e4 = hold_commander_to_plain(name, kern4, plain4)
+    qp_in = tuple(kern4[:6])
+    sched = dict(iterations=6, polish=True, polish_sweeps=8, polish_refine=4)
+    kern1 = pf.solve_grf_qp_fused_packed(*qp_in, *warm_p, **base, **sched)
+    plain1 = pf._fused_plain(*qp_in, warm_p, pf.FusedSchedule(**base, **sched))
+    dense = kernels.assemble(*qp_in, swing_relax=SWING_ROW_RELAX,
+                             equilibrated=False, **base)[:2]
+    torch.cuda.synchronize()
+    e1, _ = hold_fused_to_plain(name + " QP (warm-6)", kern1, plain1, dense)
+    extras = (kern1[0], kern4[6], kern4[2])
+    kern5 = tick.stepper.packed(state_p, *extras, dt, N_SUBSTEPS)
+    plain5 = tick.stepper.plain(state_p, *extras, dt, N_SUBSTEPS)
+    torch.cuda.synchronize()
+    e5 = hold_substep_to_plain(name, kern5, plain5)
+    log(f"  {name}: K4 within tolerance (max {e4:.2e}), QP objective within "
+        f"the 1e-6 bar (max|dx| {e1:.2e}), state after the tick within "
+        f"tolerance (max {e5:.2e})")
+    return kern5, kern4[7], (kern1[0], kern1[1], kern1[2], kern4[2]), e1
+
+
+def tail_vs_plain(cfg, tick_tail, res, cmd_p):
+    """The tail's launch of K1 (the second of a ``qp_tail`` tick) at the
+    tick's shape, on the state ``res`` of a tail run: the barrier-only solve,
+    the compaction of its worst quarter, then the warm-seeded polish + prox
+    launch against its plain version on the same B / 4 inputs, and
+    solve_grf_qp_tail_packed's merge against the same launch's result.
+    Returns the launch's max |dx|."""
+    bal = cfg.balance
+    base = dict(s_diag=tuple(bal.s_diag), w_diag=float(bal.w_diag))
+    state_p, B = ftick.pack_whole_body_state(res.plant)
+    carry_p = fcmd.pack_commander_carry(res.carry)
+    qp_in = tuple(tick_tail.pre(state_p, carry_p, cmd_p)[:6])
+    first = pf.solve_grf_qp_fused_packed(*qp_in, *res.warm, **base,
+                                         iterations=6, polish=False)
+    conv = first[3][1] > 0.5
+    check(int((~conv).sum()) > 0, "the barrier-only solve leaves lanes to the "
+          "tail on this state")
+    idx = pf._worst_first(conv, B // 4)
+    taken = tuple(a[:, idx].contiguous() for a in qp_in)
+    warm3 = tuple(a[:, idx].contiguous() for a in first[:3])
+    # make_fused_tick's tail defaults (qp_tail_sweeps, qp_tail_prox_*).
+    sched = dict(iterations=0, polish=True, polish_sweeps=24, polish_refine=4,
+                 prox_steps=2, prox_iterations=8, ff_refine=False)
+    kern = pf.solve_grf_qp_fused_packed(*taken, *warm3, **base, **sched)
+    plain = pf._fused_plain(*taken, warm3, pf.FusedSchedule(**base, **sched))
+    dense = kernels.assemble(*taken, swing_relax=SWING_ROW_RELAX,
+                             equilibrated=False, **base)[:2]
+    torch.cuda.synchronize()
+    err, _ = hold_fused_to_plain(
+        f"tail launch, B / 4 = {B // 4} ({int((~conv).sum())} uncertified "
+        f"of {B})", kern, plain, dense)
+    merged = pf.solve_grf_qp_tail_packed(*qp_in, *first, **base)
+    better = (kern[3][1] > 0.5) & ~conv[idx]
+    for nm, m, a2, a1 in zip(("x", "s", "z", "diag"), merged, kern, first):
+        want = a1.clone()
+        want[:, idx] = torch.where(better[None, :], a2, a1[:, idx])
+        check(torch.equal(m, want), f"solve_grf_qp_tail_packed merges the "
+              f"same launch's {nm} into the lanes it newly certifies")
+    log(f"  tail: converged {conv.float().mean().item():.4f} before, "
+        f"{(merged[3][1] > 0.5).float().mean().item():.4f} after")
+    check((merged[3][1] > 0.5).sum() >= conv.sum(),
+          "the tail loses no certified lane")
+    return err
+
+
+def phase_tick(cfg):
+    log(f"== phase 7: the closed-loop tick, B = {B_TICK}, n_substeps = "
+        f"{N_SUBSTEPS}: make_fused_tick(gravity_comp=True) with its "
+        f"defaults (warm start, 6 barrier iterations, polish on)")
+    B = B_TICK
+    model = mit_cheetah_whole_body_model(cfg)
+    contact = ContactConfig()
+    tick = ftick.make_fused_tick(model, cfg, contact, gravity_comp=True)
+    plant = init_whole_body_state(cfg, (B,))
+    carry = init_commander_carry((B,))
+    cmd0 = torch.zeros(6, device=DEV)
+
+    # The first 3 ticks through the plain versions as well.
+    state_p, _ = ftick.pack_whole_body_state(plant)
+    carry_p = fcmd.pack_commander_carry(carry)
+    warm_p = ftick.init_qp_warm_packed(B)
+    cmd_p = torch.zeros((6, B), device=DEV)
+    k1_errs = []
+    for t in range(3):
+        state_p, carry_p, warm_p, e1 = tick_vs_plain(
+            f"stand-up tick {t + 1}", tick, model, cfg, contact, state_p,
+            carry_p, warm_p, cmd_p)
+        k1_errs.append(e1)
+
+    def drive(plant, carry, cmd, steps, tck, warm=None):
+        kernels.reset_launch_counts()              # counts set to 0
+        t0 = time.time()
+        res = ftick.rollout_whole_body_fused(
+            plant, carry, cmd, steps, tck, n_substeps=N_SUBSTEPS,
+            record=True, warm=warm)
+        torch.cuda.synchronize()
+        counts = dict(kernels.launch_counts)       # counts read
+        for nm, a in (("R", res.plant.R), ("x", res.plant.x),
+                      ("u", res.plant.u), ("q", res.plant.q),
+                      ("anchor", res.plant.anchor), ("trace x", res.trace.x)):
+            if not bool(torch.isfinite(a).all()):
+                fail(f"tick: non-finite values in {nm}")
+        return res, counts, time.time() - t0
+
+    # Stand-up from the laying pose.
+    res, counts, secs = drive(plant, carry, cmd0, 600, tick)
+    z = res.plant.x[:, 2]
+    up = res.plant.R[:, 2, 2]
+    conv = res.trace.qp_converged.float().mean().item()
+    standing = res.carry.standing.float().mean().item()
+    log(f"  stand-up 600 ticks in {secs:.2f} s: z mean {z.mean().item():.4f} "
+        f"(min {z.min().item():.4f}), R22 min {up.min().item():.4f}, "
+        f"standing {standing:.3f}, QP converged {conv:.4f}")
+    log(f"  launch counts in the stand-up run: {counts}")
+    check(abs(z.mean().item() - cfg.stand.height) < 0.015,
+          "stand-up: |mean z - 0.26| < 0.015")
+    check(up.min().item() > 0.98, "stand-up: min R22 > 0.98")
+    check(standing > 0.9, "stand-up: standing fraction > 0.9")
+    check(conv > 0.98, "stand-up: QP converged fraction > 0.98")
+    check(counts["qct_commander_pre"] == 600
+          and counts["qct_fused_solve"] == 600
+          and counts["qct_substep"] == 600 and counts["qct_assemble"] == 0,
+          "exactly 3 launches per tick (K4, K1, K5)")
+    launches = dict(counts)
+
+    # A 0.2 m/s trot (+-10 % by lane, seeded).
+    rng = np.random.default_rng(SEED + 40)
+    cmd_np = np.zeros((B, 6))
+    cmd_np[:, 0] = 0.2 + 0.02 * rng.uniform(-1.0, 1.0, B)
+    cmd = to_dev(cmd_np)
+    x0 = res.plant.x[:, 0].clone()
+    res2, counts2, secs2 = drive(res.plant, res.carry, cmd, 600, tick,
+                                 warm=res.warm)
+    up2 = res2.plant.R[:, 2, 2]
+    upright = (up2 > 0.9).float().mean().item()
+    xtrav = (res2.plant.x[:, 0] - x0).mean().item()
+    conv2 = res2.trace.qp_converged.float().mean().item()
+    swing = 1.0 - res2.trace.in_stance.float().mean().item()
+    log(f"  trot 600 ticks in {secs2:.2f} s: x travel mean {xtrav:.3f} m, z "
+        f"mean {res2.plant.x[:, 2].mean().item():.4f}, upright fraction "
+        f"{upright:.4f}, QP converged {conv2:.4f}, swing share {swing:.3f}")
+    log(f"  launch counts in the trot run: {counts2}")
+    check(upright > 0.95, "trot: upright fraction (R22 > 0.9) > 0.95")
+    check(xtrav > 0.15, "trot: mean x travel > 0.15 m")
+    check(swing > 0.02, "trot: legs swing")
+    check(counts2["qct_commander_pre"] == 600
+          and counts2["qct_fused_solve"] == 600
+          and counts2["qct_substep"] == 600,
+          "exactly 3 launches per tick in the trot")
+    for k_ in launches:
+        launches[k_] += counts2[k_]
+
+    # One mid-trot tick through the plain versions as well (lanes differ).
+    state_p, _ = ftick.pack_whole_body_state(res2.plant)
+    carry_p = fcmd.pack_commander_carry(res2.carry)
+    cmd_p = cmd.t().contiguous()
+    k1_errs.append(tick_vs_plain("mid-trot tick", tick, model, cfg, contact,
+                                 state_p, carry_p, res2.warm, cmd_p)[3])
+
+    # The certification tail: 4 launches per tick.
+    tick_tail = ftick.make_fused_tick(model, cfg, contact, gravity_comp=True,
+                                      qp_polish=False, qp_tail=True)
+    res3, counts3, secs3 = drive(res.plant, res.carry, cmd, 100, tick_tail)
+    conv3 = res3.trace.qp_converged.float().mean().item()
+    log(f"  qp_polish=False, qp_tail=True, 100 ticks in {secs3:.2f} s: "
+        f"launch counts {counts3}, QP converged {conv3:.4f}, upright "
+        f"{(res3.plant.R[:, 2, 2] > 0.9).float().mean().item():.4f}")
+    check(counts3["qct_commander_pre"] == 100
+          and counts3["qct_fused_solve"] == 200
+          and counts3["qct_substep"] == 100,
+          "exactly 4 launches per tick with the tail (K4, K1, K1, K5)")
+    check(conv3 > 0.93, "tail run: QP converged fraction > 0.93 (a 6-iteration "
+          "barrier with no polish, then the tail on the worst quarter)")
+    # The tail's own launch, on the inputs of the run's hardest tick.
+    hardest = int(res3.trace.qp_converged.float().mean(1).argmin().item())
+    before = ftick.rollout_whole_body_fused(
+        res.plant, res.carry, cmd, hardest, tick_tail, n_substeps=N_SUBSTEPS)
+    log(f"  the tail run's hardest tick is tick {hardest + 1} (converged "
+        f"{res3.trace.qp_converged[hardest].float().mean().item():.4f})")
+    k1_errs.append(tail_vs_plain(cfg, tick_tail, before, cmd_p))
+
+    times = phase_tick_times(cfg, tick, model, contact, res, res2, cmd)
+    times["k1_tick"]["max_abs_err"] = max(k1_errs)
+    times.update(launches=launches, stand=dict(
+        z_mean=z.mean().item(), standing=standing, converged=conv),
+        trot=dict(x_travel=xtrav, upright=upright, converged=conv2))
+    return times
+
+
+def phase_tick_times(cfg, tick, model, contact, res, res2, cmd):
+    log("== phase 8: times of the tick and of its three launches")
+    B = B_TICK
+    dt = tick.consts.dt
+    bal = cfg.balance
+    base = dict(s_diag=tuple(bal.s_diag), w_diag=float(bal.w_diag))
+
+    # ms per tick, marginal: (450 ticks - 50 ticks) / 400, trot from the
+    # stood-up state, nothing recorded.
+    def run(steps):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        h0 = time.time()
+        t0.record()
+        ftick.rollout_whole_body_fused(
+            res.plant, res.carry, cmd, steps, tick, n_substeps=N_SUBSTEPS,
+            warm=res.warm)
+        h1 = time.time()
+        t1.record()
+        torch.cuda.synchronize()
+        return t0.elapsed_time(t1), (h1 - h0) * 1e3
+
+    run(50)
+    best = {50: (1e30, 0.0), 450: (1e30, 0.0)}
+    for _ in range(2):
+        for steps in (50, 450):
+            best[steps] = min(best[steps], run(steps))
+    ms_tick = (best[450][0] - best[50][0]) / 400.0
+    host_ms_tick = (best[450][1] - best[50][1]) / 400.0
+    log(f"  tick: {ms_tick:.4f} ms/tick (CUDA events, marginal 450 - 50 "
+        f"ticks), {B / ms_tick * 1e3:,.0f} scenario-ticks/s at B = {B}; the "
+        f"host enqueues a tick in {host_ms_tick:.4f} ms")
+
+    # The three launches on a mid-trot state.
+    state_p, _ = ftick.pack_whole_body_state(res2.plant)
+    carry_p = fcmd.pack_commander_carry(res2.carry)
+    cmd_p = cmd.t().contiguous()
+    warm_p = res2.warm
+    out = {}
+
+    k4 = tick.pre(state_p, carry_p, cmd_p)
+    ms4 = event_ms(lambda: tick.pre(state_p, carry_p, cmd_p), 50)
+    t0 = time.time()
+    fcmd.commander_pre_plain(tick.consts, state_p, carry_p, cmd_p)
+    torch.cuda.synchronize()
+    plain4 = (time.time() - t0) * 1e3
+    b4, by4 = bound_ms(4 * B * (42 + 95 + 6 + 144), B * ops_commander(0.0))
+    out["k4"] = dict(ms=ms4, plain_ms=plain4, bound_ms=b4, bound_by=by4)
+
+    qp_in = tuple(k4[:6])
+    sched = dict(iterations=6, polish=True, polish_sweeps=8, polish_refine=4)
+    fs_ = pf.FusedSchedule(**base, **sched)
+    work = torch.zeros((2, B), dtype=torch.int32, device=DEV)
+    k1 = kernels.fused_solve(*qp_in, warm_p, fs_, work=work)
+    ms1 = event_ms(lambda: pf.solve_grf_qp_fused_packed(
+        *qp_in, *warm_p, **base, **sched), 20)
+    t0 = time.time()
+    pf._fused_plain(*qp_in, warm_p, fs_)
+    torch.cuda.synchronize()
+    plain1 = (time.time() - t0) * 1e3
+    full = dict(sched, prox_steps=0, prox_iterations=10, prox_sweeps=None,
+                ff_refine=True)
+    ops1 = ops_fused(full, int(work[0].sum().item()),
+                     int(work[1].sum().item()), 0, B)
+    b1, by1 = bound_ms(4 * B * (26 + 66 + 64), ops1)
+    out["k1_tick"] = dict(
+        mode="tick warm-6 + polish", batch=B, ms=ms1, plain_ms=plain1,
+        bound_ms=b1, bound_by=by1, operations=ops1,
+        mean_sweeps_run=work[1].float().mean().item(),
+        max_sweeps_run=int(work[1].max().item()))
+
+    extras = (k1[0], k4[6], k4[2])
+    ms5 = event_ms(lambda: tick.stepper.packed(state_p, *extras, dt,
+                                               N_SUBSTEPS), 20)
+    t0 = time.time()
+    tick.stepper.plain(state_p, *extras, dt, N_SUBSTEPS)
+    torch.cuda.synchronize()
+    plain5 = (time.time() - t0) * 1e3
+    b5, by5 = bound_ms(4 * B * (58 + 28 + 58),
+                       B * ops_substep(tick.stepper.consts, N_SUBSTEPS))
+    out["k5"] = dict(ms=ms5, plain_ms=plain5, bound_ms=b5, bound_by=by5)
+
+    in_kernels = ms4 + ms1 + ms5
+    log(f"  K4: {ms4:.4f} ms (plain {plain4:.0f} ms, bound {b4:.5f} ms, "
+        f"{by4})")
+    log(f"  K1 warm-6 + polish: {ms1:.4f} ms (plain {plain1:.0f} ms, bound "
+        f"{b1:.5f} ms, {by1}; sweeps run mean "
+        f"{out['k1_tick']['mean_sweeps_run']:.2f} max "
+        f"{out['k1_tick']['max_sweeps_run']})")
+    log(f"  K5: {ms5:.4f} ms (plain {plain5:.0f} ms, bound {b5:.5f} ms, "
+        f"{by5})")
+    log(f"  the three launches sum to {in_kernels:.4f} ms on the mid-trot "
+        f"state; share of the tick not inside a kernel: "
+        f"{(ms_tick - in_kernels) / ms_tick:.3f}")
+    out.update(ms_per_tick=ms_tick, ticks_per_s=B / ms_tick * 1e3,
+               host_ms_per_tick=host_ms_tick, in_kernels_ms=in_kernels,
+               share_outside_kernels=(ms_tick - in_kernels) / ms_tick)
+    return out
+
+
 def main():
     t_start = time.time()
     smi = phase_device()
     build_s = phase_build()
+    if sys.argv[1:]:
+        fail(f"unknown arguments {sys.argv[1:]}")
     cfg = mit_cheetah_config()
     worst = phase_kernels_vs_plain(cfg)
     gen = torch.Generator(device=DEV)
@@ -530,20 +1133,32 @@ def main():
     modes, k2 = phase_main_shapes(cfg, gen)
     main_res = phase_main_path(cfg, gen)
 
+    tick_cfg = mit_cheetah_physical_config()
+    err4 = phase_commander_vs_plain(tick_cfg)
+    err5, _ = phase_substep_vs_plain(tick_cfg)
+    tick_res = phase_tick(tick_cfg)
+    tick_launches = tick_res["launches"]
+    modes = modes + [tick_res["k1_tick"]]
+
     k1 = {
         "name": "qct_fused_solve", "route": "cuda",
         "source": "quadruped_control_tpu_torch/csrc/qct_fused_polish.cu",
         "replaces": "quadruped_control_tpu/solver/pallas_fused.py:769",
-        "launches": main_res["launches"]["qct_fused_solve"],
+        "launches": (main_res["launches"]["qct_fused_solve"]
+                     + tick_launches["qct_fused_solve"]),
+        "launches_by_path": {
+            "solve": main_res["launches"]["qct_fused_solve"],
+            "tick": tick_launches["qct_fused_solve"]},
         "max_abs_err": max(worst["qct_fused_solve"],
                            max(m["max_abs_err"] for m in modes)),
-        "ms": sum(m["ms"] for m in modes),
-        "plain_ms": sum(m["plain_ms"] for m in modes),
-        "bound_ms": sum(m["bound_ms"] for m in modes),
-        "bound_by": max(modes, key=lambda m: m["bound_ms"])["bound_by"],
+        "ms": sum(m["ms"] for m in modes[:4]),
+        "plain_ms": sum(m["plain_ms"] for m in modes[:4]),
+        "bound_ms": sum(m["bound_ms"] for m in modes[:4]),
+        "bound_by": max(modes[:4], key=lambda m: m["bound_ms"])["bound_by"],
         "library_ms": None,
         "shape": f"4 launches per solve of B={B_MAIN}: "
-                 + ", ".join(f"{m['mode']} B={m['batch']}" for m in modes),
+                 + ", ".join(f"{m['mode']} B={m['batch']}" for m in modes[:4])
+                 + f"; 1 launch per tick of B={B_TICK} (modes[4])",
         "modes": modes,
     }
     k2_entry = {
@@ -556,10 +1171,34 @@ def main():
         "bound_ms": k2["bound_ms"], "bound_by": "bytes", "library_ms": None,
         "shape": f"B={B_MAIN}",
     }
-    log(json.dumps({"main_path": main_res, "build_seconds": build_s,
+    k4_entry = {
+        "name": "qct_commander_pre", "route": "cuda",
+        "source": "quadruped_control_tpu_torch/csrc/qct_commander.cu",
+        "replaces": "quadruped_control_tpu/control/pallas_commander.py:665",
+        "launches": tick_launches["qct_commander_pre"],
+        "max_abs_err": err4, "library_ms": None,
+        "shape": f"B={B_TICK}, 1 launch per tick", **tick_res["k4"],
+    }
+    k5_entry = {
+        "name": "qct_substep", "route": "cuda",
+        "source": "quadruped_control_tpu_torch/csrc/qct_substep.cu",
+        "replaces": "quadruped_control_tpu/sim/pallas_substep.py:526",
+        "launches": tick_launches["qct_substep"],
+        "max_abs_err": err5, "library_ms": None,
+        "shape": f"B={B_TICK}, {N_SUBSTEPS} substeps, 1 launch per tick",
+        **tick_res["k5"],
+    }
+    for entry in (k1, k4_entry, k5_entry):
+        if entry["launches"] <= 0:
+            fail(f"{entry['name']} was launched no time on its main path")
+    tick_summary = {k: tick_res[k] for k in (
+        "ms_per_tick", "ticks_per_s", "host_ms_per_tick", "in_kernels_ms",
+        "share_outside_kernels", "launches", "stand", "trot")}
+    log(json.dumps({"main_path": main_res, "tick_path": tick_summary,
+                    "build_seconds": build_s,
                     "wall_seconds": time.time() - t_start}))
     log(smi)
-    log(json.dumps({"kernels": [k1, k2_entry]}))
+    log(json.dumps({"kernels": [k1, k2_entry, k4_entry, k5_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -18,7 +18,11 @@ import torch
 
 from quadruped_control_tpu_torch import config as _config
 from quadruped_control_tpu_torch import resolve_device
+from quadruped_control_tpu_torch.control.commander import CommanderCarry
+from quadruped_control_tpu_torch.sim.model import WholeBodyModel
+from quadruped_control_tpu_torch.sim.plant import ContactConfig, WholeBodyState
 from quadruped_control_tpu_torch.solver.ipm import IPMSolution
+from quadruped_control_tpu_torch.types import FootTrajCoeffs, PlannerState
 from quadruped_control_tpu_torch.utils.scenarios import ScenarioBatch
 
 
@@ -56,7 +60,7 @@ def _tensor(a, dtype, device):
     a = np.asarray(a)
     if a.dtype == np.bool_:
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
-    return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype).to(device)
+    return torch.as_tensor(np.array(a), dtype=dtype).to(device)
 
 
 def scenarios_from_numpy(d: dict, dtype=torch.float32,
@@ -105,10 +109,90 @@ def warm_carry_from_numpy(x, s, z, st_prev: Optional[np.ndarray] = None,
     return x, s, z, st
 
 
+def _as_dict(obj):
+    """A dict, or anything with ``_asdict`` (a NamedTuple of either package,
+    converted leaf by leaf with ``np.asarray`` by the caller or here)."""
+    return dict(obj) if isinstance(obj, dict) else obj._asdict()
+
+
+def whole_body_model_from_numpy(d, dtype=torch.float32,
+                                device=None) -> WholeBodyModel:
+    """The WholeBodyModel field names as NumPy arrays (a dict, or the JAX
+    package's model itself: its leaves go through ``np.asarray``) ->
+    WholeBodyModel on ``device``."""
+    device = resolve_device(device)
+    d = _as_dict(d)
+    missing = [k for k in WholeBodyModel._fields if k not in d]
+    if missing:
+        raise ValueError(f"whole_body_model_from_numpy: missing {missing}")
+    return WholeBodyModel(**{k: _tensor(d[k], dtype, device)
+                             for k in WholeBodyModel._fields})
+
+
+def whole_body_state_from_numpy(d, dtype=torch.float32,
+                                device=None) -> WholeBodyState:
+    """The WholeBodyState field names (R, x, u, q, anchor) as NumPy arrays
+    -> WholeBodyState on ``device``."""
+    device = resolve_device(device)
+    d = _as_dict(d)
+    missing = [k for k in WholeBodyState._fields if k not in d]
+    if missing:
+        raise ValueError(f"whole_body_state_from_numpy: missing {missing}")
+    return WholeBodyState(**{k: _tensor(d[k], dtype, device)
+                             for k in WholeBodyState._fields})
+
+
+def commander_carry_from_numpy(d, dtype=torch.float32,
+                               device=None) -> CommanderCarry:
+    """A commander carry as NumPy arrays -> CommanderCarry on ``device``.
+    ``d`` is nested like the NamedTuples (``planner`` -> ``traj``) or flat
+    (``prev_in_stance``, ``initialized``, ``coeffs``, ``valid`` at the top).
+    The QP warm-start triple defaults to the cold carry (0, 1, 1);
+    ``ref_pose`` / ``pose_cmd`` default to None."""
+    device = resolve_device(device)
+    d = _as_dict(d)
+    if "planner" in d:
+        pl = _as_dict(d["planner"])
+        traj = _as_dict(pl["traj"])
+    else:
+        pl, traj = d, d
+
+    def flag(a):
+        return torch.from_numpy(np.ascontiguousarray(
+            np.asarray(a).astype(np.bool_))).to(device)
+
+    gait_time = _tensor(d["gait_time"], dtype, device)
+    batch = tuple(gait_time.shape)
+    kw = dict(dtype=dtype, device=device)
+
+    def opt(name, default):
+        return default if d.get(name) is None else _tensor(d[name], dtype,
+                                                           device)
+
+    return CommanderCarry(
+        standing=flag(d["standing"]), gait_time=gait_time,
+        planner=PlannerState(
+            prev_in_stance=flag(pl["prev_in_stance"]),
+            initialized=flag(pl["initialized"]),
+            traj=FootTrajCoeffs(coeffs=_tensor(traj["coeffs"], dtype, device),
+                                valid=flag(traj["valid"]))),
+        qp_x=opt("qp_x", torch.zeros(batch + (12,), **kw)),
+        qp_s=opt("qp_s", torch.ones(batch + (24,), **kw)),
+        qp_z=opt("qp_z", torch.ones(batch + (24,), **kw)),
+        ref_pose=opt("ref_pose", None), pose_cmd=opt("pose_cmd", None))
+
+
+def contact_config_from_dict(d: dict) -> ContactConfig:
+    """``dataclasses.asdict(contact)`` of either package -> ContactConfig."""
+    return _dataclass_from_dict(ContactConfig, d)
+
+
 def to_numpy(obj):
     """Inverse direction: a tensor, a NamedTuple of tensors (ScenarioBatch,
-    IPMSolution, QPData), a tuple/list/dict of them, or a config dataclass
-    -> NumPy arrays / plain dicts (None stays None)."""
+    IPMSolution, QPData, WholeBodyModel, WholeBodyState, CommanderCarry with
+    its nested planner state), a tuple/list/dict of them, or a config
+    dataclass (ControlConfig, ContactConfig) -> NumPy arrays / plain dicts
+    (None stays None)."""
     if obj is None:
         return None
     if torch.is_tensor(obj):

@@ -34,12 +34,14 @@ import torch
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_ROOT = Path(__file__).resolve().parent / "_build"
-_SOURCES = ("qct_assemble.cu", "qct_fused_barrier.cu", "qct_fused_polish.cu")
+_SOURCES = ("qct_assemble.cu", "qct_fused_barrier.cu", "qct_fused_polish.cu",
+            "qct_commander.cu", "qct_substep.cu")
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-fmad=false", "-Xcompiler", "-fPIC")
 
 # Launches of each kernel since the last reset (plain integers).
-launch_counts = {"qct_fused_solve": 0, "qct_assemble": 0}
+launch_counts = {"qct_fused_solve": 0, "qct_assemble": 0,
+                 "qct_commander_pre": 0, "qct_substep": 0}
 
 # The compiler's resource report (-Xptxas -v) of the build this process made
 # ("" when the library of an earlier build was loaded).
@@ -78,6 +80,88 @@ class FusedParams(ctypes.Structure):
         ("ff_refine", ctypes.c_int),
         ("equilibrated", ctypes.c_int),
     ]
+
+
+_F = ctypes.c_float
+
+
+class CommanderParams(ctypes.Structure):
+    """Mirror of ``QctCmdParams`` in csrc/qct_commander.cuh (same order)."""
+
+    _fields_ = [
+        ("hips", _F * 12), ("l1s", _F * 4),
+        ("l1", _F), ("l2", _F), ("l3", _F), ("sl2", _F), ("sl3", _F),
+        ("l1_sq", _F), ("ik_sum", _F), ("inv_ik_den", _F),
+        ("dt", _F), ("dt_cmd", _F), ("stand_h", _F), ("stand_tol", _F),
+        ("inv_period", _F), ("stance_thresh", _F), ("half_t_stance", _F),
+        ("swing_height", _F), ("offsets", _F * 4),
+        ("slope", _F), ("intercept", _F),
+        ("fp_hips", _F * 12), ("fp_k", _F), ("inv_fp_g", _F),
+        ("kp_j", _F * 3), ("kd_j", _F * 3), ("kff_j", _F * 3),
+        ("mass", _F), ("inertia", _F * 3),
+        ("kp_p", _F * 3), ("kd_p", _F * 3), ("kp_w", _F * 3),
+        ("kd_w", _F * 3), ("kff", _F * 6),
+        ("kff_mg", _F), ("gravity_z", _F), ("mu", _F), ("fz_min", _F),
+        ("fz_max", _F), ("a_inv", _F * 21),
+        ("contact_gate", _F), ("raibert_cmd_symmetric", ctypes.c_int),
+    ]
+
+
+class SubstepParams(ctypes.Structure):
+    """Mirror of ``QctSubParams`` in csrc/qct_substep.cuh (same order)."""
+
+    _fields_ = [
+        ("trunk_m", _F), ("trunk_I", _F * 3), ("link_m", _F * 12),
+        ("link_c", _F * 36), ("link_I", _F * 36), ("leaf_h", _F * 36),
+        ("leaf_J", _F * 108), ("joint_r", _F * 36), ("damp", _F * 12),
+        ("armature", _F * 12), ("hips", _F * 12), ("l1s", _F * 4),
+        ("sl2", _F), ("sl3", _F),
+        ("k_n", _F), ("d_n", _F), ("mu", _F), ("kt", _F), ("ct", _F),
+        ("v_s", _F), ("trunk_cz", _F),
+        ("tau_min", _F), ("tau_max", _F), ("gravity", _F),
+        ("use_anchor", ctypes.c_int), ("torque_qp", ctypes.c_int),
+        ("gravity_comp", ctypes.c_int), ("prefactor_kernel", ctypes.c_int),
+    ]
+
+
+def _fill(struct, values: dict):
+    """Copy Python floats / sequences / arrays into a ctypes struct (each
+    value is rounded to the field's type by ctypes)."""
+    for name, ctype in struct._fields_:
+        v = values[name]
+        if hasattr(ctype, "_length_"):
+            flat = [float(e) for e in _flatten(v)]
+            if len(flat) != ctype._length_:
+                raise ValueError(f"{name}: {len(flat)} values for "
+                                 f"{ctype._length_}")
+            setattr(struct, name, ctype(*flat))
+        else:
+            setattr(struct, name, int(v) if ctype is ctypes.c_int else float(v))
+    return struct
+
+
+def _flatten(v):
+    if hasattr(v, "ravel"):
+        return v.ravel().tolist()
+    out = []
+    for e in v:
+        out.extend(_flatten(e) if hasattr(e, "__len__") else [e])
+    return out
+
+
+def commander_params(c, contact_gate, raibert_cmd_symmetric):
+    """``control.fused_commander.CommanderConsts`` -> CommanderParams."""
+    values = {name: getattr(c, name, None)
+              for name, _ in CommanderParams._fields_}
+    values.update(l1_sq=c.l1 * c.l1, a_inv=c.a_inv[:, 0:3],
+                  contact_gate=contact_gate,
+                  raibert_cmd_symmetric=int(raibert_cmd_symmetric))
+    return _fill(CommanderParams(), values)
+
+
+def substep_params(c):
+    """``sim.fused_substep.SubstepConsts`` -> SubstepParams."""
+    return _fill(SubstepParams(), c._asdict())
 
 
 def _nvcc() -> str:
@@ -153,6 +237,12 @@ def load():
             lib.qct_assemble.argtypes = [vp] * 10 + [
                 ci, ctypes.POINTER(FusedParams), vp]
             lib.qct_assemble.restype = ci
+            lib.qct_commander_pre.argtypes = [vp] * 12 + [
+                ci, ctypes.POINTER(CommanderParams), vp]
+            lib.qct_commander_pre.restype = ci
+            lib.qct_substep.argtypes = [vp] * 6 + [
+                ci, ci, ctypes.c_float, ctypes.POINTER(SubstepParams), vp]
+            lib.qct_substep.restype = ci
             lib.qct_error_string.argtypes = [ci]
             lib.qct_error_string.restype = ctypes.c_char_p
             _lib = lib
@@ -269,3 +359,70 @@ def assemble(rp, bp, stp, mup, fminp, fmaxp, *, s_diag, w_diag, swing_relax,
     _check(lib, rc, "qct_assemble")
     launch_counts["qct_assemble"] += 1
     return Q, c, G, h
+
+
+# Rows of the commander-pre kernel's outputs in its one output slab:
+# r | b | st | mu | fz_min | fz_max | tau_swing | carry | q_ref.
+_CMD_OUT_ROWS = (12, 6, 4, 1, 1, 1, 12, 95, 12)
+
+
+def commander_pre(state, carry, cmd, params):
+    """Launch the commander-pre kernel (K4) once on ``(k, B)`` CUDA tensors:
+    ``state`` (>= 42, B), ``carry`` (95, B), ``cmd`` (6, B); ``params`` is a
+    :class:`CommanderParams` (see :func:`commander_params`). Returns (r, b,
+    st, mu, fz_min, fz_max, tau_swing, carry, q_ref), contiguous row blocks
+    of ONE allocation."""
+    device = state.device
+    B = state.shape[1]
+    _require_cuda("state", state, state.shape[0], B, device)
+    if state.shape[0] < 42:
+        raise ValueError(f"state: {state.shape[0]} rows, the kernel reads 42")
+    _require_cuda("carry", carry, 95, B, device)
+    _require_cuda("cmd", cmd, 6, B, device)
+    lib = load()
+    slab = torch.empty((sum(_CMD_OUT_ROWS), B), dtype=torch.float32,
+                       device=device)
+    outs = torch.split(slab, _CMD_OUT_ROWS)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.qct_commander_pre(
+            state.data_ptr(), carry.data_ptr(), cmd.data_ptr(),
+            *(o.data_ptr() for o in outs), B, ctypes.byref(params), stream)
+    _check(lib, rc, "qct_commander_pre")
+    launch_counts["qct_commander_pre"] += 1
+    return outs
+
+
+def substep(state, extras, factor, params, n_substeps, h):
+    """Launch the substep kernel (K5) once on ``(k, B)`` CUDA tensors:
+    ``state`` (58, B); ``extras`` = (fw (12, B), tau_swing (12, B), st (4,
+    B)) when ``params.torque_qp`` else (tau (12, B),); ``factor`` (216, B)
+    unless ``params.prefactor_kernel``. ``params`` is a
+    :class:`SubstepParams` (see :func:`substep_params`). Returns the new
+    state (58, B)."""
+    device = state.device
+    B = state.shape[1]
+    _require_cuda("state", state, 58, B, device)
+    widths = (12, 12, 4) if params.torque_qp else (12,)
+    if len(extras) != len(widths):
+        raise ValueError(f"expected {len(widths)} torque inputs, got "
+                         f"{len(extras)}")
+    for name, a, k in zip(("a", "tau_swing", "st"), extras, widths):
+        _require_cuda(name, a, k, B, device)
+    if params.prefactor_kernel:
+        if factor is not None:
+            raise ValueError("factor given but the kernel builds its own")
+    else:
+        _require_cuda("factor", factor, 216, B, device)
+    lib = load()
+    out = torch.empty((58, B), dtype=torch.float32, device=device)
+    ptrs = [a.data_ptr() for a in extras] + [None] * (3 - len(extras))
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.qct_substep(
+            state.data_ptr(), *ptrs,
+            None if factor is None else factor.data_ptr(), out.data_ptr(),
+            B, int(n_substeps), float(h), ctypes.byref(params), stream)
+    _check(lib, rc, "qct_substep")
+    launch_counts["qct_substep"] += 1
+    return out

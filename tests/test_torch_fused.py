@@ -314,7 +314,8 @@ def test_wrapper_contract_errors():
         kernels.fused_solve(*inp, (), sched)
     with pytest.raises(ValueError, match="CUDA"):
         kernels.assemble(*inp, swing_relax=1e4, equilibrated=False, **KW)
-    assert kernels.launch_counts == {"qct_fused_solve": 0, "qct_assemble": 0}
+    assert set(kernels.launch_counts) >= {"qct_fused_solve", "qct_assemble"}
+    assert not any(kernels.launch_counts.values())
 
 
 def test_scenario_generator_distributions():

@@ -43,11 +43,46 @@ def test_port_has_the_expected_modules():
     for rel in ("config.py", "convert.py", "kernels.py", "math/rotations.py",
                 "math/numerics.py", "ops/kinematics.py", "ops/dynamics.py",
                 "solver/ipm.py", "solver/fused.py", "solver/reference.py",
-                "solver/smallalg.py", "utils/ff.py", "utils/scenarios.py"):
+                "solver/smallalg.py", "utils/ff.py", "utils/scenarios.py",
+                # the closed-loop whole-body tick
+                "types.py", "ops/gait.py", "ops/foot_planner.py",
+                "ops/trajectory.py", "ops/joint_control.py",
+                "control/commander.py", "control/rollout.py",
+                "control/fused_commander.py", "sim/__init__.py",
+                "sim/model.py", "sim/dynamics.py", "sim/plant.py",
+                "sim/rollout.py", "sim/fused_substep.py",
+                "sim/fused_tick.py"):
         assert f"quadruped_control_tpu_torch/{rel}" in have
     csrc = ROOT / "quadruped_control_tpu_torch" / "csrc"
     assert sorted(p.name for p in csrc.glob("*.cu")) == [
-        "qct_assemble.cu", "qct_fused_barrier.cu", "qct_fused_polish.cu"]
+        "qct_assemble.cu", "qct_commander.cu", "qct_fused_barrier.cu",
+        "qct_fused_polish.cu", "qct_substep.cu"]
+
+
+def test_every_kernel_source_is_built_and_counted():
+    """kernels.py builds every .cu under csrc/ and keeps one launch counter
+    per kernel wrapper; importing it builds nothing."""
+    from quadruped_control_tpu_torch import kernels
+
+    csrc = ROOT / "quadruped_control_tpu_torch" / "csrc"
+    assert sorted(kernels._SOURCES) == sorted(
+        p.name for p in csrc.glob("*.cu"))
+    assert set(kernels.launch_counts) == {
+        "qct_fused_solve", "qct_assemble", "qct_commander_pre",
+        "qct_substep"}
+    kernels.reset_launch_counts()
+    assert not any(kernels.launch_counts.values())
+
+
+def test_kernels_use_nan_propagating_min_max():
+    """CUDA fminf/fmaxf drop a NaN; the barrier's poison and the plant's
+    freeze-on-nonfinite guard need it kept (qmin/qmax of qct_common.cuh)."""
+    csrc = ROOT / "quadruped_control_tpu_torch" / "csrc"
+    for path in sorted(csrc.glob("*.cu*")):
+        code = "\n".join(line.split("//")[0]
+                         for line in path.read_text().splitlines())
+        for name in ("fminf(", "fmaxf(", "fmin(", "fmax("):
+            assert name not in code, f"{path.name} calls {name[:-1]}"
 
 
 def test_kernel_sources_never_use_fast_math():

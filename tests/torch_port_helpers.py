@@ -14,6 +14,10 @@ import torch
 
 from quadruped_control_tpu.utils import scenarios as jscen
 from quadruped_control_tpu_torch import convert
+from quadruped_control_tpu_torch.utils.scenarios import (
+    walk_carry_comps,
+    walk_state_comps,
+)
 
 STANCE_PATTERNS = np.array(
     [[True, True, True, True],
@@ -103,3 +107,81 @@ def t2n(a):
 
 TORCH_DTYPES = {"f32": torch.float32, "f64": torch.float64}
 NP_DTYPES = {"f32": np.float32, "f64": np.float64}
+
+
+# ---------------------------------------------------------------------------
+# Whole-body states and commander carries (second slice of the port): drawn
+# with NumPy by the port's own generators and handed to both packages.
+# ---------------------------------------------------------------------------
+
+def jax_whole_body_state(d, dtype=jnp.float64):
+    from quadruped_control_tpu.sim.plant import WholeBodyState
+
+    return WholeBodyState(**{k: jnp.asarray(d[k], dtype)
+                             for k in WholeBodyState._fields})
+
+
+def torch_whole_body_state(d, dtype=torch.float64):
+    return convert.whole_body_state_from_numpy(d, dtype=dtype, device="cpu")
+
+
+def jax_commander_carry(c, dtype=jnp.float64):
+    """commander_carry_walk dict -> the JAX package's CommanderCarry."""
+    from quadruped_control_tpu.control.commander import CommanderCarry
+    from quadruped_control_tpu.types import FootTrajCoeffs, PlannerState
+
+    B = c["gait_time"].shape[0]
+    return CommanderCarry(
+        standing=jnp.asarray(c["standing"]),
+        gait_time=jnp.asarray(c["gait_time"], dtype),
+        planner=PlannerState(
+            prev_in_stance=jnp.asarray(c["prev_in_stance"]),
+            initialized=jnp.asarray(c["initialized"]),
+            traj=FootTrajCoeffs(coeffs=jnp.asarray(c["coeffs"], dtype),
+                                valid=jnp.asarray(c["valid"]))),
+        qp_x=jnp.zeros((B, 12), dtype), qp_s=jnp.ones((B, 24), dtype),
+        qp_z=jnp.ones((B, 24), dtype))
+
+
+def torch_commander_carry(c, dtype=torch.float64):
+    return convert.commander_carry_from_numpy(c, dtype=dtype, device="cpu")
+
+
+def jax_com_joints(d, dtype=jnp.float64):
+    """ComState / JointState of the JAX package from a walk-state dict."""
+    from quadruped_control_tpu.types import ComState, JointState
+
+    R = jnp.asarray(d["R"], dtype)
+    u = jnp.asarray(d["u"], dtype)
+    com = ComState(R=R, x=jnp.asarray(d["x"], dtype),
+                   xdot=(R @ u[:, 3:6, None])[..., 0],
+                   w=(R @ u[:, :3, None])[..., 0])
+    return com, JointState(q=jnp.asarray(d["q"], dtype),
+                           qdot=u[:, 6:].reshape(-1, 4, 3))
+
+
+def torch_com_joints(d, dtype=torch.float64):
+    from quadruped_control_tpu_torch.types import ComState, JointState
+
+    R = torch.as_tensor(d["R"], dtype=dtype)
+    u = torch.as_tensor(d["u"], dtype=dtype)
+    com = ComState(R=R, x=torch.as_tensor(d["x"], dtype=dtype),
+                   xdot=(R @ u[:, 3:6, None])[..., 0],
+                   w=(R @ u[:, :3, None])[..., 0])
+    return com, JointState(q=torch.as_tensor(d["q"], dtype=dtype),
+                           qdot=u[:, 6:].reshape(-1, 4, 3))
+
+
+# The kernels' (k, B) layouts of those dicts (float64 arrays).
+state_comps_np = walk_state_comps
+carry_comps_np = walk_carry_comps
+
+
+def assert_close(got, want, tol, name="", rel_to_max=True):
+    """|got - want| <= tol * (1 + max|want|) (the JAX package's own parity
+    criterion, tests/test_pallas_tick.py)."""
+    got = np.asarray(t2n(got) if torch.is_tensor(got) else got, np.float64)
+    want = np.asarray(want, np.float64)
+    scale = 1.0 + (np.abs(want).max() if want.size else 0.0)
+    np.testing.assert_allclose(got, want, rtol=0.0, atol=tol * scale,
+                               err_msg=name)
