@@ -23,6 +23,20 @@ of a 0.2 m/s trot at B = 4096 with behaviour limits and exactly 3 launches
 per tick (4 with the certification tail), the first ticks also through the
 plain versions, and ms per tick and per launch beside the bounds.
 
+Then the third main path, the receding-horizon MPC tick (commander-pre K4
+with its MPC block -> MPC kernel K6 -> substeps K5) in its recommended
+configuration (mit_cheetah_whole_body_config, N = 8, mpc_dt = 0.03, warm
+start, 8 iterations, B = 4096 robots whose start poses differ by 1e-4 m):
+K4's MPC block against its plain version over 8 chained ticks, 600 ticks of
+stand-up and 900 of a 0.2 m/s trot (chunked, the warm carry threaded
+through) with exactly 3 launches per tick, the stand-up limits held and the
+trot reported; the same with 15 cold iterations, held to the stand-up and
+trot limits; whole ticks through the plain versions, the decimated rollout's
+launch counts; K6 against its plain version at every shape and mode the path
+uses (cold-15, warm-8 with flipped schedule bits, N = 24 without
+best-iterate tracking, the unpacked entry at a ragged batch, poisoned
+lanes); ms per tick and per launch beside the bound.
+
 Any failed phase ends the run with a non-zero exit code; nothing is caught and
 carried on. Without a CUDA device it exits with code 2 and prints no result.
 
@@ -48,11 +62,14 @@ from quadruped_control_tpu_torch import kernels  # noqa: E402
 from quadruped_control_tpu_torch.config import (  # noqa: E402
     mit_cheetah_config,
     mit_cheetah_physical_config,
+    mit_cheetah_whole_body_config,
 )
 from quadruped_control_tpu_torch.control import fused_commander as fcmd  # noqa: E402
 from quadruped_control_tpu_torch.control.commander import (  # noqa: E402
     init_commander_carry,
 )
+from quadruped_control_tpu_torch.mpc import fused_riccati as fr  # noqa: E402
+from quadruped_control_tpu_torch.mpc import structured as mst  # noqa: E402
 from quadruped_control_tpu_torch.ops.dynamics import SWING_ROW_RELAX  # noqa: E402
 from quadruped_control_tpu_torch.sim import (  # noqa: E402
     ContactConfig,
@@ -81,6 +98,12 @@ B_MAIN = 32768
 REPS = 5
 B_TICK = 4096
 N_SUBSTEPS = 10
+# The MPC tick's main configuration (scripts/verify_mpc_warm_tick.py of the
+# JAX package): mit_cheetah_whole_body_config (the fast trot with the swing PD
+# stiffened for the articulated legs), horizon 8 at 0.03 s, warm start, 8 IPM
+# iterations.
+MPC_N, MPC_DT, MPC_ITERS = 8, 0.03, 8
+MPC_STAND, MPC_TROT = 600, 900
 # Published peaks of one H100 SXM (NVIDIA data sheet): float32 outside the
 # tensor cores, and HBM3 bandwidth.
 PEAK_F32_FLOPS = 67e12
@@ -1120,6 +1143,550 @@ def phase_tick_times(cfg, tick, model, contact, res, res2, cmd):
     return out
 
 
+# ---------------------------------------------------------------------------
+# The MPC tick: K4 (+ MPC block) -> K6 -> K5
+# ---------------------------------------------------------------------------
+
+def ops_mpc(N, iterations, warm):
+    """Float32 operations of one K6 instance, counted from the loops of
+    csrc/qct_mpc.cuh (one per add, subtract, multiply, divide, compare /
+    select; the update is counted on every iteration, so a frozen lane is
+    overcounted by ~3 % of an iteration). Per IPM iteration and horizon
+    step: residuals 620 (one H-vector product 320), right-hand side 200,
+    the Riccati sweep 14,200 (P B 1,248, Luu 1,038, LDL^T 962, Lux 1,404,
+    13 gain columns 3,744, the P update 4,342, the rest 1,460), the forward
+    rollout 453, the step rule 396, the update 408."""
+    per_step_iteration = 620 + 200 + 14200 + 453 + 396 + 408
+    setup = 900 * N + (24 * 8 + 12 * 5) * N * int(warm)
+    return iterations * N * per_step_iteration + setup
+
+
+def mpc_bytes(N, warm):
+    words_in = 25 + 17 * N + (64 * N if warm else 0)
+    words_out = 12 * N + 6 + (60 * N if warm else 0)
+    return 4 * (words_in + words_out)
+
+
+def _mpc_settings(cfg, N, dt, iterations):
+    bal = cfg.balance
+    return fr.MpcSettings(n_steps=N, dt=dt, iterations=iterations,
+                          mass=bal.mass, inertia_diag=bal.inertia_diag,
+                          mu=bal.mu, fz_min=bal.fz_min, fz_max=bal.fz_max)
+
+
+def _mpc_solve(block, warm, st):
+    out = fr.solve_mpc_qp_riccati_packed(
+        block, warm, settings=st, n_steps=st.n_steps, dt=st.dt,
+        mass=st.mass, inertia_diag=st.inertia_diag, mu=st.mu,
+        fz_min=st.fz_min, fz_max=st.fz_max, state_weights=st.state_weights,
+        iterations=st.iterations)
+    return out if warm is not None else out + (None,)
+
+
+def mpc_objective(cfg, block, F, N, dt):
+    """Float64 horizon objective 1/2 F^T H F + c^T F of each lane on its own
+    problem (the MPC block's data), through the structured operators (no
+    dense H)."""
+    blk = block.double().t()
+    Bn = blk.shape[0]
+    xi0, r = blk[:, :13], blk[:, 13:25].reshape(Bn, 4, 3)
+    sched = blk[:, 25:25 + 4 * N].reshape(Bn, N, 4) > 0.5
+    ref = blk[:, 25 + 4 * N:].reshape(Bn, N, 13)
+    data = mst.build_mpc_structured(xi0, ref, xi0[:, 2], r,
+                                    torch.zeros_like(xi0[:, :3]), sched, N,
+                                    dt, cfg)
+    Fd = F.t().double().reshape(Bn, N, 12)
+    return (0.5 * mst._hvp(data, Fd) * Fd
+            + mst._linear_cost(data) * Fd).sum((-2, -1))
+
+
+def hold_mpc_to_plain(name, cfg, block, kern, plain, N, dt):
+    """K6 against its plain version on the same inputs: float64 objective
+    gap over all lanes median < 1e-5 and p99 < 5e-4, converged flags
+    agreeing on >= 0.99 of the lanes, swing forces exactly 0, the warm
+    output's s and z finite and > 0. Both run the same algorithm in another
+    operation order (cuBLAS products with FMA in the plain version, none in
+    the kernel), which the iterations amplify, and a near-tie of the merit
+    can flip the best-iterate pick. The gap on the lanes both certify is
+    reported beside it. Returns (max |dF| over the certified lanes,
+    stats)."""
+    Fk, dk, wk = kern
+    Fp, dp, _ = plain
+    both = (dk[0] > 0.5) & (dp[0] > 0.5)
+    ok_, op_ = mpc_objective(cfg, block, Fk, N, dt), mpc_objective(
+        cfg, block, Fp, N, dt)
+    rel_all = (ok_ - op_).abs() / (1.0 + op_.abs())
+    rel = rel_all[both].cpu().numpy()
+    agree = (dk[0] == dp[0]).float().mean().item()
+    conv_k, conv_p = dk[0].mean().item(), dp[0].mean().item()
+    swing = block[25:25 + 4 * N].repeat_interleave(3, 0) < 0.5
+    swing_max = Fk[swing].abs().max().item() if bool(swing.any()) else 0.0
+    max_abs = (Fk - Fp)[:, both].abs().max().item() if bool(both.any()) \
+        else 0.0
+    stats = dict(conv_kernel=conv_k, conv_plain=conv_p, agreement=agree,
+                 both_certified=both.float().mean().item(),
+                 gap_median=float(np.median(rel)) if rel.size else None,
+                 gap_p99=float(np.percentile(rel, 99)) if rel.size else None,
+                 gap_all_median=rel_all.median().item(),
+                 gap_all_p99=torch.quantile(rel_all.float(), 0.99).item(),
+                 max_abs_dF=max_abs, swing_max=swing_max,
+                 bitwise=bool(torch.equal(Fk, Fp) and torch.equal(dk, dp)))
+    cert = (f"median {stats['gap_median']:.2e} p99 {stats['gap_p99']:.2e}"
+            if rel.size else "none")
+    log(f"  K6 {name}: conv kernel {conv_k:.4f} plain {conv_p:.4f}, "
+        f"agreement {agree:.4f}; objective gap over all lanes: median "
+        f"{stats['gap_all_median']:.2e} p99 {stats['gap_all_p99']:.2e}; on "
+        f"the {both.sum().item()} lanes both certify: {cert}; max|dF| "
+        f"{max_abs:.3e} N; swing max {swing_max}; bitwise "
+        f"{stats['bitwise']}")
+    if not (stats["gap_all_median"] < 1e-5 and stats["gap_all_p99"] < 5e-4
+            and agree >= 0.99 and swing_max == 0.0
+            and bool(torch.isfinite(Fk).all())):
+        fail(f"kernel K6 {name} disagrees with its plain version")
+    if wk is not None:
+        sz = wk[:48 * N]
+        if not (bool(torch.isfinite(wk).all()) and bool((sz > 0).all())):
+            fail(f"K6 {name}: warm output not finite and positive")
+    return max_abs, stats
+
+
+def phase_commander_mpc_vs_plain(cfg):
+    log(f"== phase 9: K4 with the MPC block (N = {MPC_N}) vs its plain "
+        f"version, B = {B_TICK}, 8 chained ticks")
+    consts = fcmd.CommanderConsts(cfg, 1.0 / cfg.frequency)
+    carry = carry_comps(commander_carry_walk(SEED + 60, B_TICK, cfg))
+    worst = 0.0
+    for t in range(8):
+        d = whole_body_walk_states(SEED + 70 + t, B_TICK, cfg)
+        state, cmd = state_comps(d), to_dev(d["cmd"].T)
+        kw = dict(mpc_horizon=MPC_N, mpc_dt=MPC_DT)
+        kern = fcmd.commander_pre_packed(state, carry, cmd, consts=consts,
+                                         **kw)
+        plain = fcmd.commander_pre_plain(consts, state, carry, cmd, **kw)
+        torch.cuda.synchronize()
+        worst = max(worst, hold_commander_to_plain(f"MPC tick {t}", kern[:9],
+                                                   plain[:9]))
+        sched = slice(25, 25 + 4 * MPC_N)
+        if not torch.equal(kern[9][sched], plain[9][sched]):
+            fail(f"K4 MPC tick {t}: the stance schedule differs")
+        err = (kern[9] - plain[9]).abs().max().item()
+        if not torch.allclose(kern[9], plain[9], rtol=1e-5, atol=1e-5):
+            fail(f"K4 MPC tick {t}: MPC block max abs err {err:.3e}")
+        worst = max(worst, err)
+        carry = kern[7]
+    log(f"  K4 with the MPC block within tolerance over 8 ticks (block rtol "
+        f"1e-5 atol 1e-5, schedule exact); worst abs err {worst:.3e}")
+    return worst
+
+
+def _finite_plant(res, what):
+    for nm, a in (("R", res.plant.R), ("x", res.plant.x), ("u", res.plant.u),
+                  ("q", res.plant.q), ("anchor", res.plant.anchor)):
+        if not bool(torch.isfinite(a).all()):
+            fail(f"{what}: non-finite values in {nm}")
+
+
+def mpc_tick_vs_plain(name, cfg, tick, state_p, carry_p, warm_p, cmd_p,
+                      k6_iterations=None):
+    """One MPC tick through the kernels and, on the same inputs, through the
+    plain versions (K4 plain -> K6 plain -> K5 plain). ``k6_iterations``
+    holds K6 to its plain version at that many iterations on the tick's MPC
+    block and carry (for a tick where the tick's own iterations certify no
+    lane: there the objective gap measures two unfinished iterates); K5 takes
+    the tick's own forces either way."""
+    dt = tick.consts.dt
+    k4 = tick.pre(state_p, carry_p, cmd_p)
+    p4 = fcmd.commander_pre_plain(
+        tick.consts, state_p, carry_p, cmd_p, mpc_horizon=tick.mpc_horizon,
+        mpc_dt=tick.mpc_dt)
+    torch.cuda.synchronize()
+    e4 = hold_commander_to_plain(name, k4[:9], p4[:9])
+    if not torch.equal(k4[9], p4[9]):
+        fail(f"{name}: K4's MPC block differs from its plain version")
+    k6 = _mpc_solve(k4[9], warm_p, tick.settings)
+    st6, k6c, what = tick.settings, k6, name
+    if k6_iterations is not None:
+        st6 = _mpc_settings(cfg, tick.mpc_horizon, tick.mpc_dt, k6_iterations)
+        k6c = _mpc_solve(k4[9], warm_p, st6)
+        what = f"{name} at {k6_iterations} iterations"
+    p6 = fr.packed_plain(k4[9], warm_p, st6)
+    p6 = p6 if warm_p is not None else p6 + (None,)
+    torch.cuda.synchronize()
+    e6, _ = hold_mpc_to_plain(what, cfg, k4[9], k6c, p6, tick.mpc_horizon,
+                              tick.mpc_dt)
+    extras = (k6[0][0:12], k4[6], k4[2])
+    k5 = tick.stepper.packed(state_p, *extras, dt, N_SUBSTEPS)
+    p5 = tick.stepper.plain(state_p, *extras, dt, N_SUBSTEPS)
+    torch.cuda.synchronize()
+    e5 = hold_substep_to_plain(name, k5, p5)
+    log(f"  {name}: K4 + MPC block equal to plain, K6 within tolerance "
+        f"(max|dF| {e6:.2e}), state after the tick within tolerance (max "
+        f"{e5:.2e})")
+    return max(e4, e5), e6
+
+
+def phase_mpc_tick(cfg):
+    """The MPC loop on B robots whose start poses differ by 1e-4 m (seeded),
+    so that the fractions below are over distinct trajectories: the warm-8
+    trot of this configuration is a marginal limit cycle (PARITY.md
+    "stability anatomy"; the JAX package's own tick drops a share of such a
+    population too, scripts/mpc_warm_trot_population.py), and one trajectory
+    copied B times says survive or fall for all of them at once. Warm-8 (the
+    measured configuration) is gated on the stand-up limits and reports its
+    trot; the trot limits of scripts/verify_mpc_warm_tick.py:65-66 are gated
+    on cold-15, the configuration that holds them on every robot."""
+    log(f"== phase 10: the MPC tick, B = {B_TICK}, mit_cheetah_whole_body_"
+        f"config: make_fused_tick(controller='mpc', mpc_horizon={MPC_N}, "
+        f"mpc_dt={MPC_DT}, mpc_iterations={MPC_ITERS}, mpc_warm_start=True, "
+        f"gravity_comp=True); start poses differ by 1e-4 m")
+    B = B_TICK
+    model = mit_cheetah_whole_body_model(cfg)
+    kw = dict(controller="mpc", mpc_horizon=MPC_N, mpc_dt=MPC_DT,
+              gravity_comp=True)
+    tick = ftick.make_fused_tick(model, cfg, ContactConfig(),
+                                 mpc_iterations=MPC_ITERS,
+                                 mpc_warm_start=True, **kw)
+    cold = ftick.make_fused_tick(model, cfg, ContactConfig(),
+                                 mpc_iterations=15, **kw)
+    plant0 = init_whole_body_state(cfg, (B,))
+    shift = np.zeros((B, 3))
+    shift[:, :2] = 1e-4 * np.random.default_rng(SEED + 80).standard_normal(
+        (B, 2))
+    plant = plant0._replace(x=plant0.x + to_dev(shift))
+    carry = init_commander_carry((B,))
+    cmd = torch.zeros((B, 6), device=DEV)
+    cmd[:, 0] = 0.2   # the command of scripts/verify_mpc_warm_tick.py
+    zero = torch.zeros(6, device=DEV)
+
+    def drive(plant, carry, cmd, steps, tck, warm=None):
+        kernels.reset_launch_counts()              # counts set to 0
+        t0 = time.time()
+        res = ftick.rollout_whole_body_fused_chunked(
+            plant, carry, cmd, steps, tck, chunk=300, n_substeps=N_SUBSTEPS,
+            record=True, warm=warm)
+        torch.cuda.synchronize()
+        counts = dict(kernels.launch_counts)       # counts read
+        _finite_plant(res, "MPC tick")
+        if not bool(torch.isfinite(res.trace.x).all()):
+            fail("MPC tick: non-finite trace")
+        return res, counts, time.time() - t0
+
+    def three_launches(counts, steps, what):
+        check(counts["qct_commander_pre"] == steps
+              and counts["qct_mpc_riccati"] == steps
+              and counts["qct_substep"] == steps
+              and counts["qct_fused_solve"] == 0
+              and counts["qct_assemble"] == 0,
+              f"{what}: exactly 3 launches per tick (K4, K6, K5), no K1: "
+              f"{counts}")
+
+    def stand_stats(res, what, secs):
+        z = res.plant.x[:, 2]
+        st = dict(z_mean=z.mean().item(),
+                  standing=res.carry.standing.float().mean().item(),
+                  upright=(res.plant.R[:, 2, 2] > 0.9).float().mean().item(),
+                  mpc_converged=res.trace.qp_converged.float().mean().item())
+        log(f"  {what}: stand-up {MPC_STAND} ticks in {secs:.2f} s: z mean "
+            f"{st['z_mean']:.4f}, standing {st['standing']:.3f}, upright "
+            f"{st['upright']:.4f}, MPC converged {st['mpc_converged']:.4f}")
+        return st
+
+    def trot_stats(res, x0, steps, what, secs):
+        st = dict(speed=(res.plant.x[:, 0] - x0).mean().item()
+                  / (steps * tick.consts.dt),
+                  z_mean=res.plant.x[:, 2].mean().item(),
+                  upright=(res.plant.R[:, 2, 2] > 0.9).float().mean().item(),
+                  mpc_converged=res.trace.qp_converged.float().mean().item(),
+                  upright_by_100=[
+                      (res.trace.x[k, :, 2] > 0.15).float().mean().item()
+                      for k in range(99, steps, 100)])
+        log(f"  {what}: trot {steps} ticks in {secs:.2f} s: mean x speed "
+            f"{st['speed']:.4f} m/s, z mean {st['z_mean']:.4f}, upright "
+            f"{st['upright']:.4f}, MPC converged {st['mpc_converged']:.4f}; "
+            f"share with z > 0.15 m every 100 ticks "
+            f"{[round(v, 3) for v in st['upright_by_100']]}")
+        return st
+
+    def hold_limits(st_s, st_t, what):
+        check(abs(st_s["z_mean"] - cfg.stand.height) < 0.02,
+              f"{what} stand-up: |mean z - stand height| < 0.02")
+        check(st_s["standing"] > 0.9, f"{what} stand-up: standing > 0.9")
+        check(st_s["upright"] > 0.95, f"{what} stand-up: upright fraction "
+              f"(R22 > 0.9) > 0.95")
+        if st_t is not None:
+            check(st_t["upright"] > 0.95, f"{what} trot: upright fraction "
+                  f"(R22 > 0.9) > 0.95")
+            check(0.10 < st_t["speed"] < 0.25,
+                  f"{what} trot: 0.10 < mean x speed < 0.25 m/s")
+
+    # warm-8: the main configuration, whose launches are counted.
+    res, counts, secs = drive(plant, carry, zero, MPC_STAND, tick)
+    stand = stand_stats(res, "warm-8", secs)
+    hold_limits(stand, None, "warm-8")
+    three_launches(counts, MPC_STAND, "warm-8 stand-up")
+    launches = dict(counts)
+    x0 = res.plant.x[:, 0].clone()
+    mid = MPC_TROT // 3
+    res_mid, counts_a, secs_a = drive(res.plant, res.carry, cmd, mid, tick,
+                                      warm=res.warm)
+    res2, counts_b, secs_b = drive(res_mid.plant, res_mid.carry, cmd,
+                                   MPC_TROT - mid, tick, warm=res_mid.warm)
+    res2 = res2._replace(trace=ftick.FusedRolloutTrace(*(
+        torch.cat(p) for p in zip(res_mid.trace, res2.trace))))
+    counts2 = {k: counts_a[k] + counts_b[k] for k in counts_a}
+    trot = trot_stats(res2, x0, MPC_TROT, "warm-8", secs_a + secs_b)
+    three_launches(counts2, MPC_TROT, "warm-8 trot")
+    for k_ in launches:
+        launches[k_] += counts2[k_]
+    log("  warm-8's trot is reported, not gated (see the docstring); the "
+        "limits are held on cold-15 below")
+
+    # cold-15: the trot limits.
+    res_c, counts_c, secs_c = drive(plant, carry, zero, MPC_STAND, cold)
+    stand_c = stand_stats(res_c, "cold-15", secs_c)
+    three_launches(counts_c, MPC_STAND, "cold-15 stand-up")
+    x0c = res_c.plant.x[:, 0].clone()
+    res_c2, counts_c2, secs_c2 = drive(res_c.plant, res_c.carry, cmd,
+                                       MPC_TROT, cold)
+    trot_c = trot_stats(res_c2, x0c, MPC_TROT, "cold-15", secs_c2)
+    three_launches(counts_c2, MPC_TROT, "cold-15 trot")
+    hold_limits(stand_c, trot_c, "cold-15")
+
+    # Whole ticks through the plain versions: the first stand-up tick and a
+    # trot tick (a third into the warm-8 trot, every robot still upright).
+    state_p, _ = ftick.pack_whole_body_state(plant)
+    carry_p = fcmd.pack_commander_carry(carry)
+    errs, errs6 = [], []
+    # Tick 1 starts cold from the laying pose, where 8 iterations certify no
+    # lane: K6 is held to its plain version at 25 on that tick's block.
+    e, e6 = mpc_tick_vs_plain("MPC tick 1", cfg, tick, state_p, carry_p,
+                              tick.init_warm(B), torch.zeros((6, B),
+                                                             device=DEV),
+                              k6_iterations=25)
+    errs.append(e)
+    errs6.append(e6)
+    state_m, _ = ftick.pack_whole_body_state(res_mid.plant)
+    carry_m = fcmd.pack_commander_carry(res_mid.carry)
+    cmd_p = cmd.t().contiguous()
+    e, e6 = mpc_tick_vs_plain("mid-trot MPC tick", cfg, tick, state_m,
+                              carry_m, res_mid.warm, cmd_p)
+    errs.append(e)
+    errs6.append(e6)
+
+    # The decimated rollout: K6 every 4 ticks.
+    kernels.reset_launch_counts()
+    t0 = time.time()
+    dec = ftick.rollout_whole_body_fused_decimated(
+        res.plant, res.carry, cmd, 200, tick, mpc_every=4,
+        n_substeps=N_SUBSTEPS, record=True)
+    torch.cuda.synchronize()
+    cdec = dict(kernels.launch_counts)
+    _finite_plant(dec, "decimated MPC rollout")
+    log(f"  decimated, mpc_every=4, 200 ticks in {time.time() - t0:.2f} s: "
+        f"launches {cdec}, MPC converged "
+        f"{dec.trace.qp_converged.float().mean().item():.4f}")
+    check(cdec["qct_mpc_riccati"] == 50 and cdec["qct_commander_pre"] == 200
+          and cdec["qct_substep"] == 200 and cdec["qct_fused_solve"] == 0,
+          "decimated: K6 launched steps / 4 times, K4 and K5 every tick")
+    return dict(tick=tick, cold_tick=cold, model=model, res=res,
+                res_mid=res_mid, cmd=cmd, launches=launches,
+                k4_max=max(errs), k6_tick_max=max(errs6), stand=stand,
+                trot=trot, cold=dict(stand=stand_c, trot=trot_c),
+                decimated=dict(launches=cdec, mpc_converged=dec.trace
+                               .qp_converged.float().mean().item()))
+
+
+def phase_mpc_kernel_vs_plain(cfg, mpc):
+    log(f"== phase 11: K6 vs its plain version on the card, B = {B_TICK}, "
+        f"on MPC blocks K4 emits from trot states (a third into the warm-8 "
+        f"trot)")
+    B = B_TICK
+    tick = mpc["tick"]
+    res2 = mpc["res_mid"]
+    state_m, _ = ftick.pack_whole_body_state(res2.plant)
+    carry_m = fcmd.pack_commander_carry(res2.carry)
+    cmd_p = mpc["cmd"].t().contiguous()
+    consts = tick.consts
+    modes = {}
+    worst = mpc["k6_tick_max"]
+
+    def run(name, block, warm, st):
+        nonlocal worst
+        kern = _mpc_solve(block, warm, st)
+        t0 = time.time()
+        plain = fr.packed_plain(block, warm, st)
+        torch.cuda.synchronize()
+        plain_ms = (time.time() - t0) * 1e3
+        plain = plain if warm is not None else plain + (None,)
+        err, stats = hold_mpc_to_plain(name, cfg, block, kern, plain,
+                                       st.n_steps, st.dt)
+        worst = max(worst, err)
+        modes[name] = dict(stats, plain_ms=plain_ms)
+        return kern
+
+    blk8 = fcmd.commander_pre_packed(state_m, carry_m, cmd_p, consts=consts,
+                                     mpc_horizon=MPC_N, mpc_dt=MPC_DT)[9]
+    # cold-15, N = 8.
+    st15 = _mpc_settings(cfg, MPC_N, MPC_DT, 15)
+    cold = run("cold-15 N=8", blk8, None, st15)
+    # warm-8 from the run's carry, a third of the lanes' schedule bits
+    # flipped (those rows restart cold).
+    F_w, sz_w, sched_w = res2.warm
+    sched_f = sched_w.clone()
+    sched_f[:, ::3] = 1.0 - sched_f[:, ::3]
+    run("warm-8 N=8", blk8, (F_w, sz_w, sched_f), tick.settings)
+    zero = tick.init_warm(B)
+    zw = _mpc_solve(blk8, zero, st15)
+    check(torch.equal(zw[0], cold[0]) and torch.equal(zw[1], cold[1]),
+          "K6: a zero warm carry with a -1 schedule is bitwise the cold "
+          "start (kernel vs kernel)")
+    # N = 24, 25 iterations: the branch without best-iterate tracking.
+    blk24 = fcmd.commander_pre_packed(state_m, carry_m, cmd_p, consts=consts,
+                                      mpc_horizon=24, mpc_dt=0.02)[9]
+    st24 = _mpc_settings(cfg, 24, 0.02, 25)
+    k24 = run("N=24 25 it (no best tracking)", blk24, None, st24)
+    w24 = _mpc_solve(blk24, ftick.init_mpc_warm_packed(B, horizon=24), st24)
+    check(torch.equal(w24[0], w24[2][48 * 24:]) and torch.equal(w24[0],
+                                                                 k24[0]),
+          "K6 N=24: the control output is the final iterate")
+
+    # The unpacked entry (solve_mpc_fused) at a ragged batch, against the
+    # same lanes in the full batch and against the plain version.
+    blk = blk8.t()
+    xi0, r = blk[:, :13], blk[:, 13:25].reshape(B, 4, 3)
+    sched = blk[:, 25:25 + 4 * MPC_N].reshape(B, MPC_N, 4) > 0.5
+    ref = blk[:, 25 + 4 * MPC_N:].reshape(B, MPC_N, 13)
+    x_com = torch.zeros((B, 3), device=DEV)
+    nb = (3, 37)
+    n = nb[0] * nb[1]
+
+    def cut(a):
+        return a[:n].reshape(nb + a.shape[1:])
+
+    Fr, sr = fr.solve_mpc_fused(cut(xi0), cut(ref), cut(xi0[:, 2]), cut(r),
+                                cut(x_com), cut(sched), MPC_N, MPC_DT, cfg,
+                                iterations=15)
+    Ff, sf = fr.solve_mpc_fused(xi0, ref, xi0[:, 2], r, x_com, sched, MPC_N,
+                                MPC_DT, cfg, iterations=15)
+    torch.cuda.synchronize()
+    check(torch.equal(Fr.reshape(n, MPC_N, 12), Ff[:n])
+          and torch.equal(sr.converged.reshape(n), sf.converged[:n]),
+          "K6 unpacked entry at a ragged (3, 37) batch: the same lanes as "
+          "in the full batch, bitwise")
+    check(torch.equal(Ff.reshape(B, -1).t(), cold[0]),
+          "K6: the unpacked entry (per-lane constants) equals the packed one "
+          "on the same lanes, bitwise")
+    kern_u = (Ff.reshape(B, -1).t().contiguous(),
+              torch.stack([sf.converged.float(), sf.primal_residual,
+                           sf.dual_residual, sf.gap]), None)
+    plain_u = fr.packed_plain(blk8, None, st15) + (None,)
+    torch.cuda.synchronize()
+    hold_mpc_to_plain("unpacked entry", cfg, blk8, kern_u, plain_u, MPC_N,
+                      MPC_DT)
+
+    # Poisoned lanes: NaN and 1e6 in xi0 stay in their lanes.
+    bad = blk8.clone()
+    bad[0, 0] = float("nan")
+    bad[9, 1] = 1.0e6
+    kb = _mpc_solve(bad, None, st15)
+    torch.cuda.synchronize()
+    check(torch.equal(kb[0][:, 2:], cold[0][:, 2:])
+          and torch.equal(kb[1][:, 2:], cold[1][:, 2:]),
+          "K6: NaN and 1e6 lanes leave every other lane bitwise unchanged")
+    check(kb[1][0, 0].item() == 0.0 and kb[1][0, 1].item() == 0.0
+          and bool(torch.isfinite(kb[0][:, 1]).all()),
+          "K6: the poisoned lanes are not certified; the 1e6 lane stays "
+          "finite")
+    log(f"  K6 worst max|dF| on certified lanes over all modes: {worst:.3e}")
+    return dict(max_abs_err=worst, modes=modes)
+
+
+def phase_mpc_times(cfg, mpc):
+    log("== phase 12: times of the MPC tick and of its three launches")
+    B = B_TICK
+    res, res2, cmd = mpc["res"], mpc["res_mid"], mpc["cmd"]
+    out = {"summary": {}}
+    for name, tck, warm in (("warm-8", mpc["tick"], res.warm),
+                            ("cold-15", mpc["cold_tick"], None)):
+        def run(steps):
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            h0 = time.time()
+            t0.record()
+            ftick.rollout_whole_body_fused(res.plant, res.carry, cmd, steps,
+                                           tck, n_substeps=N_SUBSTEPS,
+                                           warm=warm)
+            h1 = time.time()
+            t1.record()
+            torch.cuda.synchronize()
+            return t0.elapsed_time(t1), (h1 - h0) * 1e3
+
+        run(20)
+        best = {20: (1e30, 0.0), 120: (1e30, 0.0)}
+        for _ in range(2):
+            for steps in (20, 120):
+                best[steps] = min(best[steps], run(steps))
+        ms_tick = (best[120][0] - best[20][0]) / 100.0
+        host = (best[120][1] - best[20][1]) / 100.0
+        log(f"  MPC tick {name}: {ms_tick:.4f} ms/tick (CUDA events, "
+            f"marginal 120 - 20 ticks), {B / ms_tick * 1e3:,.0f} "
+            f"scenario-ticks/s at B = {B}; the host enqueues a tick in "
+            f"{host:.4f} ms")
+        out["summary"][name] = dict(ms_per_tick=ms_tick,
+                                    ticks_per_s=B / ms_tick * 1e3,
+                                    host_ms_per_tick=host)
+
+    # The three launches on a mid-trot state, warm-8.
+    tick = mpc["tick"]
+    state_p, _ = ftick.pack_whole_body_state(res2.plant)
+    carry_p = fcmd.pack_commander_carry(res2.carry)
+    cmd_p = cmd.t().contiguous()
+    k4 = tick.pre(state_p, carry_p, cmd_p)
+    ms4 = event_ms(lambda: tick.pre(state_p, carry_p, cmd_p), 50)
+    t0 = time.time()
+    fcmd.commander_pre_plain(tick.consts, state_p, carry_p, cmd_p,
+                             mpc_horizon=MPC_N, mpc_dt=MPC_DT)
+    torch.cuda.synchronize()
+    plain4 = (time.time() - t0) * 1e3
+    kb = 4 * B * (42 + 95 + 6 + 144 + 25 + 17 * MPC_N)
+    b4, by4 = bound_ms(kb, B * (ops_commander(0.0) + 20 + 60 + 26 * MPC_N))
+    out["k4"] = dict(ms=ms4, plain_ms=plain4, bound_ms=b4, bound_by=by4)
+
+    ms6 = event_ms(lambda: tick.solve(k4[9], res2.warm), 10)
+    t0 = time.time()
+    fr.packed_plain(k4[9], res2.warm, tick.settings)
+    torch.cuda.synchronize()
+    plain6 = (time.time() - t0) * 1e3
+    ops6 = ops_mpc(MPC_N, MPC_ITERS, True)
+    b6, by6 = bound_ms(B * mpc_bytes(MPC_N, True), B * ops6)
+    st15 = mpc["cold_tick"].settings
+    ms6c = event_ms(lambda: mpc["cold_tick"].solve(k4[9]), 5)
+    b6c, by6c = bound_ms(B * mpc_bytes(MPC_N, False),
+                         B * ops_mpc(MPC_N, st15.iterations, False))
+    out["k6"] = dict(ms=ms6, plain_ms=plain6, bound_ms=b6, bound_by=by6,
+                     operations_per_lane=ops6,
+                     cold15=dict(ms=ms6c, bound_ms=b6c, bound_by=by6c))
+    F_p = tick.solve(k4[9], res2.warm)[0]
+    extras = (F_p[0:12], k4[6], k4[2])
+    ms5 = event_ms(lambda: tick.stepper.packed(state_p, *extras,
+                                               tick.consts.dt, N_SUBSTEPS), 20)
+    in_k = ms4 + ms6 + ms5
+    ms_tick = out["summary"]["warm-8"]["ms_per_tick"]
+    log(f"  K4 + MPC block: {ms4:.4f} ms (plain {plain4:.0f} ms, bound "
+        f"{b4:.5f} ms, {by4})")
+    log(f"  K6 warm-8: {ms6:.4f} ms (plain {plain6:.0f} ms, bound {b6:.5f} "
+        f"ms, {by6}, {ops6} operations per lane); cold-15 {ms6c:.4f} ms "
+        f"(bound {b6c:.5f} ms)")
+    log(f"  K5: {ms5:.4f} ms; the three launches sum to {in_k:.4f} ms; share "
+        f"of the warm-8 tick not inside a kernel: "
+        f"{(ms_tick - in_k) / ms_tick:.3f}")
+    out["summary"].update(in_kernels_ms=in_k, k4_ms=ms4, k6_ms=ms6,
+                          k5_ms=ms5,
+                          share_outside_kernels=(ms_tick - in_k) / ms_tick)
+    return out
+
+
 def main():
     t_start = time.time()
     smi = phase_device()
@@ -1139,6 +1706,12 @@ def main():
     tick_res = phase_tick(tick_cfg)
     tick_launches = tick_res["launches"]
     modes = modes + [tick_res["k1_tick"]]
+    mpc_cfg = mit_cheetah_whole_body_config()
+    err4m = phase_commander_mpc_vs_plain(mpc_cfg)
+    mpc_res = phase_mpc_tick(mpc_cfg)
+    k6 = phase_mpc_kernel_vs_plain(mpc_cfg, mpc_res)
+    mpc_times = phase_mpc_times(mpc_cfg, mpc_res)
+    mpc_launches = mpc_res["launches"]
 
     k1 = {
         "name": "qct_fused_solve", "route": "cuda",
@@ -1175,30 +1748,54 @@ def main():
         "name": "qct_commander_pre", "route": "cuda",
         "source": "quadruped_control_tpu_torch/csrc/qct_commander.cu",
         "replaces": "quadruped_control_tpu/control/pallas_commander.py:665",
-        "launches": tick_launches["qct_commander_pre"],
-        "max_abs_err": err4, "library_ms": None,
-        "shape": f"B={B_TICK}, 1 launch per tick", **tick_res["k4"],
+        "launches": (tick_launches["qct_commander_pre"]
+                     + mpc_launches["qct_commander_pre"]),
+        "launches_by_path": {
+            "tick": tick_launches["qct_commander_pre"],
+            "mpc_tick": mpc_launches["qct_commander_pre"]},
+        "max_abs_err": max(err4, err4m), "library_ms": None,
+        "shape": f"B={B_TICK}, 1 launch per tick; with the MPC block "
+                 f"(N={MPC_N}) on the MPC tick ({mpc_times['k4']['ms']:.4f} "
+                 f"ms there)", **tick_res["k4"],
     }
     k5_entry = {
         "name": "qct_substep", "route": "cuda",
         "source": "quadruped_control_tpu_torch/csrc/qct_substep.cu",
         "replaces": "quadruped_control_tpu/sim/pallas_substep.py:526",
-        "launches": tick_launches["qct_substep"],
+        "launches": (tick_launches["qct_substep"]
+                     + mpc_launches["qct_substep"]),
+        "launches_by_path": {"tick": tick_launches["qct_substep"],
+                             "mpc_tick": mpc_launches["qct_substep"]},
         "max_abs_err": err5, "library_ms": None,
         "shape": f"B={B_TICK}, {N_SUBSTEPS} substeps, 1 launch per tick",
         **tick_res["k5"],
     }
-    for entry in (k1, k4_entry, k5_entry):
+    k6_entry = {
+        "name": "qct_mpc_riccati", "route": "cuda",
+        "source": "quadruped_control_tpu_torch/csrc/qct_mpc.cu",
+        "replaces": "quadruped_control_tpu/mpc/pallas_riccati.py:79",
+        "launches": mpc_launches["qct_mpc_riccati"],
+        "max_abs_err": k6["max_abs_err"], "library_ms": None,
+        "shape": f"B={B_TICK}, N={MPC_N}, warm, {MPC_ITERS} iterations, "
+                 f"1 launch per MPC tick (modes: {list(k6['modes'])})",
+        **mpc_times["k6"], "modes": k6["modes"],
+    }
+    for entry in (k1, k4_entry, k5_entry, k6_entry):
         if entry["launches"] <= 0:
             fail(f"{entry['name']} was launched no time on its main path")
     tick_summary = {k: tick_res[k] for k in (
         "ms_per_tick", "ticks_per_s", "host_ms_per_tick", "in_kernels_ms",
         "share_outside_kernels", "launches", "stand", "trot")}
+    mpc_summary = dict(mpc_times["summary"], launches=mpc_launches,
+                       stand=mpc_res["stand"], trot=mpc_res["trot"],
+                       decimated=mpc_res["decimated"], cold=mpc_res["cold"])
     log(json.dumps({"main_path": main_res, "tick_path": tick_summary,
+                    "mpc_tick_path": mpc_summary,
                     "build_seconds": build_s,
                     "wall_seconds": time.time() - t_start}))
     log(smi)
-    log(json.dumps({"kernels": [k1, k2_entry, k4_entry, k5_entry]}))
+    log(json.dumps({"kernels": [k1, k2_entry, k4_entry, k5_entry,
+                                k6_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

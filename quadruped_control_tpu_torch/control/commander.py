@@ -12,8 +12,11 @@ State machine parity (commander_node.cpp:377-479):
   - walking: integrate the commanded twist for the desired pose, plan
     footholds on stance->swing edges, track sextic swing trajectories.
 
-``controller="mpc"`` (and :func:`mpc_precursors`) belongs to the third slice
-of the port and raises ``NotImplementedError``.
+``controller="mpc"``: the stance forces come from f_0 of a receding-horizon
+SRB MPC over the gait's scheduled contacts (mpc/), through one of three
+backends: "condensed" (dense stacked QP), "structured" (O(N) Riccati IPM) or
+"riccati-pallas" (the MPC kernel K6: CUDA on CUDA tensors, its plain version
+on CPU tensors; the option keeps the JAX package's name).
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from quadruped_control_tpu_torch import resolve_device
 from quadruped_control_tpu_torch.config import ControlConfig, StancePoseConfig
 from quadruped_control_tpu_torch.math.numerics import almost_equal
 from quadruped_control_tpu_torch.math.rotations import (
+    matrix_to_rpy,
     rpy_to_matrix,
     transform_adjoint,
 )
@@ -57,9 +61,7 @@ from quadruped_control_tpu_torch.types import (
     init_planner_state,
 )
 
-_MPC_MSG = ("controller='mpc' is the third slice of the port (the Riccati "
-            "MPC kernel of mpc/pallas_riccati.py is not ported yet); use "
-            "controller='balance'")
+_MPC_BACKENDS = ("condensed", "structured", "riccati-pallas")
 
 
 class CommanderCarry(NamedTuple):
@@ -89,7 +91,8 @@ class CommanderOutput(NamedTuple):
     foot_refs_world: torch.Tensor  # (..., 4, 3) swing foot reference positions
     swing_q_ref: torch.Tensor  # (..., 4, 3)
     qp_converged: torch.Tensor  # (...,)
-    forces_horizon: Optional[torch.Tensor] = None  # MPC only (slice 3)
+    # Full horizon forces (..., N, 12) when controller="mpc", else None.
+    forces_horizon: Optional[torch.Tensor] = None
 
 
 def init_commander_carry(batch_shape=(), dtype=torch.float32,
@@ -470,17 +473,64 @@ def commander_precursors(com: ComState, joints: JointState,
     )
 
 
-def mpc_precursors(*args, **kwargs):
-    """MPC input assembly: third slice of the port."""
-    raise NotImplementedError(_MPC_MSG)
+def mpc_precursors(com: ComState, gait_time, walking, eff_stance,
+                   cmd_twist, cfg: ControlConfig, mpc_horizon: int,
+                   mpc_dt: float, contact_gate: float = 0.0,
+                   yaw_d=None):
+    """MPC input assembly of ``commander_step(controller="mpc")`` (the
+    unfused twin of the commander-pre kernel's MPC precursor block).
+
+    Returns (xi0, xi_ref, yaw, stance_sched):
+      xi0: (..., 13) [rpy, x, w_world, xdot_world, 1] SRB-MPC state;
+      xi_ref: (..., N, 13) constant-twist reference
+        (mpc/horizon.make_reference_trajectory);
+      stance_sched: (..., N, 4) contact schedule sampled from the SAME gait
+        clock that produced this tick's stance mask (step 0 equals
+        gait.in_stance when walking); all-stance until the clock runs. With
+        contact gating, step 0 carries the measured-contact gate.
+    ``yaw_d``: the servoed desired yaw of ``heading_lead`` — seeds the
+    reference's yaw instead of the measured one (the dynamics stay
+    linearized at the measured yaw).
+    """
+    from quadruped_control_tpu_torch.mpc.horizon import (
+        make_reference_trajectory,
+    )
+
+    dtype = com.x.dtype
+    rpy = matrix_to_rpy(com.R)
+    ones = torch.ones(com.x.shape[:-1] + (1,), dtype=dtype,
+                      device=com.x.device)
+    xi0 = torch.cat([rpy, com.x, com.w, com.xdot, ones], dim=-1)
+
+    t0 = torch.clamp(gait_time, min=0.0)
+    t_hor = t0[..., None] + mpc_dt * torch.arange(
+        mpc_horizon, dtype=dtype, device=com.x.device)
+    gait_hor = gait_at_time(t_hor, cfg.gait, dtype=dtype)
+    stance_sched = torch.where(walking[..., None, None], gait_hor.in_stance,
+                               True)
+    if contact_gate:
+        stance_sched = stance_sched.clone()
+        stance_sched[..., 0, :] = stance_sched[..., 0, :] & eff_stance
+
+    # Constant-twist reference from the command (zero twist: hold the
+    # current (x, y, yaw) and drive to the stand height).
+    cmd_eff = torch.where(walking[..., None], cmd_twist, 0.0)
+    xi_seed = xi0
+    if yaw_d is not None:
+        xi_seed = _set(xi0, 2, torch.where(walking, yaw_d, xi0[..., 2]))
+    xi_ref = make_reference_trajectory(xi_seed, cmd_eff, mpc_horizon, mpc_dt,
+                                       target_height=cfg.stand.height)
+    return xi0, xi_ref, rpy[..., 2], stance_sched
 
 
 def commander_step(com: ComState, joints: JointState, carry: CommanderCarry,
                    cmd_twist, dt, cfg: ControlConfig,
                    qp_iterations: int = 15, qp_polish: bool = True,
                    qp_warm_start: bool = False, qp_backend: str = "jnp",
-                   controller: str = "balance", forces_override=None,
-                   weight_shift: float = 0.0,
+                   controller: str = "balance", mpc_horizon: int = 8,
+                   mpc_dt: float = 0.05, mpc_iterations: int = 25,
+                   mpc_backend: str = "structured", forces_override=None,
+                   mpc_state_weights=None, weight_shift: float = 0.0,
                    contact_gate: float = 0.0,
                    raibert_cmd_symmetric: bool = False,
                    heading_hold: bool = False,
@@ -502,7 +552,18 @@ def commander_step(com: ComState, joints: JointState, carry: CommanderCarry,
         "fused" (``solver.fused.solve_balance_qp_fused``: the CUDA kernel on
         CUDA tensors, its plain version on CPU tensors).
       controller: "balance" — the reference's single-step GRF QP
-        (balance_controller.cpp:98-235). "mpc" raises (third slice).
+        (balance_controller.cpp:98-235); "mpc" — receding-horizon convex SRB
+        MPC (Di Carlo et al. 2018, mpc/): the stance GRFs are f_0 of the
+        horizon solve over the gait's scheduled contacts; the swing pipeline
+        is the same.
+      mpc_horizon / mpc_dt / mpc_iterations: horizon length N, MPC step
+        (>= control dt; the schedule is sampled from the gait clock), and
+        the IPM's iteration count for controller="mpc".
+      mpc_backend: "condensed" (mpc/horizon, dense stacked QP),
+        "structured" (O(N) Riccati IPM), or "riccati-pallas" (the MPC
+        kernel, mpc/fused_riccati.solve_mpc_fused; any batch).
+      mpc_state_weights: optional (13,) or (..., 13) MPC state-cost
+        diagonal for every backend.
       forces_override: optional (..., 12) world-frame GRFs — skip the
         stance-force solve and apply these; the swing pipeline still runs.
       gravity_comp_tau: optional (..., 4, 3) leg gravity torques added to
@@ -511,10 +572,11 @@ def commander_step(com: ComState, joints: JointState, carry: CommanderCarry,
     Returns:
       (CommanderOutput, CommanderCarry).
     """
-    if controller == "mpc":
-        raise NotImplementedError(_MPC_MSG)
-    if controller != "balance":
+    if controller not in ("balance", "mpc"):
         raise ValueError(f"controller must be 'balance'|'mpc': {controller}")
+    if controller == "mpc" and mpc_backend not in _MPC_BACKENDS:
+        raise ValueError(f"mpc_backend must be one of {_MPC_BACKENDS}: "
+                         f"{mpc_backend}")
     if qp_backend not in ("jnp", "fused"):
         raise ValueError(f"qp_backend must be 'jnp'|'fused': {qp_backend}")
     dtype = com.x.dtype
@@ -538,7 +600,9 @@ def commander_step(com: ComState, joints: JointState, carry: CommanderCarry,
     batch = com.x.shape[:-1]
 
     # 9. Stance-force controller: the single-step balance QP (the
-    #    reference's hot path, commander_node.cpp:507-508).
+    #    reference's hot path, commander_node.cpp:507-508) or the
+    #    receding-horizon MPC.
+    forces_horizon = None
     if forces_override is not None:
         kw = dict(dtype=dtype, device=com.x.device)
         sol = IPMSolution(
@@ -550,6 +614,11 @@ def commander_step(com: ComState, joints: JointState, carry: CommanderCarry,
             converged=torch.ones(batch, dtype=torch.bool,
                                  device=com.x.device),
         )
+    elif controller == "mpc":
+        F, sol = _mpc_solve(com, pre, carry, cmd_twist, cfg, mpc_horizon,
+                            mpc_dt, mpc_iterations, mpc_backend,
+                            mpc_state_weights, contact_gate, foothold_trim)
+        forces_horizon = F.to(dtype)
     elif qp_backend == "fused":
         from quadruped_control_tpu_torch.solver.fused import (
             solve_balance_qp_fused,
@@ -612,6 +681,47 @@ def commander_step(com: ComState, joints: JointState, carry: CommanderCarry,
         foot_refs_world=pre.foot_ref.position,
         swing_q_ref=pre.q_ref,
         qp_converged=sol.converged,
-        forces_horizon=None,
+        forces_horizon=forces_horizon,
     )
     return out, new_carry
+
+
+def _mpc_solve(com, pre, carry, cmd_twist, cfg, mpc_horizon, mpc_dt,
+               mpc_iterations, mpc_backend, mpc_state_weights, contact_gate,
+               foothold_trim):
+    """controller="mpc": the horizon solve of one of the three backends.
+    Returns (F (..., N, 12), IPMSolution whose x is f_0 and whose s, z are
+    the carry's QP triple, untouched)."""
+    hl = (getattr(foothold_trim, "heading_lead", 0.0)
+          if foothold_trim is not None else 0.0)
+    yaw_d = None
+    if not (isinstance(hl, float) and hl == 0.0):
+        # The servoed desired yaw of commander_precursors' heading_lead
+        # block (R_d is a pure-z rotation there).
+        yaw_d = torch.atan2(pre.R_d[..., 1, 0], pre.R_d[..., 0, 0])
+    xi0, xi_ref, yaw, sched = mpc_precursors(
+        com, pre.gait_time, pre.walking, pre.eff_stance, cmd_twist, cfg,
+        mpc_horizon, mpc_dt, contact_gate=contact_gate, yaw_d=yaw_d)
+    args = (xi0, xi_ref, yaw, pre.p_start, com.x, sched, mpc_horizon, mpc_dt,
+            cfg)
+    if mpc_backend == "riccati-pallas":
+        from quadruped_control_tpu_torch.mpc.fused_riccati import (
+            solve_mpc_fused,
+        )
+
+        F, sol = solve_mpc_fused(*args, iterations=mpc_iterations,
+                                 state_weights=mpc_state_weights)
+    elif mpc_backend == "structured":
+        from quadruped_control_tpu_torch.mpc.structured import (
+            solve_mpc_structured,
+        )
+
+        F, sol = solve_mpc_structured(*args, iterations=mpc_iterations,
+                                      state_weights=mpc_state_weights)
+    else:
+        from quadruped_control_tpu_torch.mpc.horizon import solve_mpc
+
+        F, sol = solve_mpc(*args, iterations=mpc_iterations,
+                           state_weights=mpc_state_weights)
+    sol = sol._replace(x=F[..., 0, :], s=carry.qp_s, z=carry.qp_z)
+    return F, sol

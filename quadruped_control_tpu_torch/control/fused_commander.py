@@ -11,6 +11,12 @@ exactly the tensors the fused QP kernel consumes plus the swing torques and
 the updated controller carry, so a whole-body closed-loop tick is three
 launches (sim/fused_tick.py).
 
+With ``mpc_horizon = N > 0`` the same launch also emits the MPC precursor
+block (:func:`mpc_block_size` words per robot: xi0, the world levers, the
+N-step stance schedule sampled from the gait clock, the constant-twist
+reference) that the MPC kernel (mpc/fused_riccati.py, K6) consumes, so the
+MPC tick is three launches too.
+
 ``commander_pre_plain`` is the plain PyTorch version of the kernel: the same
 arithmetic on ``(k, B)`` tensors of any dtype. ``commander_pre_packed``
 launches the CUDA kernel (csrc/qct_commander.cu) on CUDA tensors and runs the
@@ -23,9 +29,7 @@ feedforward typo, balance_controller.cpp:137-139; the inclusive stance
 boundary, gait.cpp:127). It has none of ``body_frame_exact``,
 ``heading_hold``, ``foothold_trim``, ``stance_pose``.
 
-Unsupported: ``weight_shift`` (refused, as in the reference kernel);
-``mpc_horizon > 0`` (the MPC precursor block) raises ``NotImplementedError``:
-third slice of the port.
+Unsupported: ``weight_shift`` (refused, as in the reference kernel).
 """
 
 from __future__ import annotations
@@ -37,6 +41,9 @@ import torch
 
 from quadruped_control_tpu_torch import kernels
 from quadruped_control_tpu_torch.config import GRAVITY, ControlConfig
+from quadruped_control_tpu_torch.mpc.fused_riccati import (  # noqa: F401
+    mpc_block_size,  # re-exported: the block layout K4 writes
+)
 from quadruped_control_tpu_torch.ops.trajectory import _A_INV
 
 # Component layouts (k axis of (k, B) tensors).
@@ -116,9 +123,11 @@ class CommanderConsts:
         self.a_inv = np.asarray(_A_INV)  # (7, 7); only cols 0:3 used
         self._params = {}
 
-    def params(self, contact_gate: float, raibert_cmd_symmetric: bool):
+    def params(self, contact_gate: float, raibert_cmd_symmetric: bool,
+               mpc_horizon: int = 0, mpc_dt: float = 0.0):
         """The kernel's by-value argument struct for these options."""
-        key = (float(contact_gate), bool(raibert_cmd_symmetric))
+        key = (float(contact_gate), bool(raibert_cmd_symmetric),
+               int(mpc_horizon), float(mpc_dt))
         if key not in self._params:
             self._params[key] = kernels.commander_params(self, *key)
         return self._params[key]
@@ -263,15 +272,18 @@ def _jacobian(c: CommanderConsts, leg, s1, c1, s2, c2, s23, c23, zero):
 
 def commander_pre_plain(c: CommanderConsts, state, carry, cmd, *,
                         contact_gate: float = 0.0,
-                        raibert_cmd_symmetric: bool = False):
+                        raibert_cmd_symmetric: bool = False,
+                        mpc_horizon: int = 0, mpc_dt: float = 0.0):
     """The plain PyTorch version of the commander-pre kernel.
 
     Args:
       c: constants.
       state: (>= 42, B); carry: (95, B); cmd: (6, B); any float dtype.
+      mpc_horizon / mpc_dt: N > 0 appends the MPC precursor block.
     Returns:
       (r (12,B), b (6,B), st (4,B), mu (1,B), fz_min (1,B), fz_max (1,B),
-       tau_swing (12,B), carry (95,B), q_ref (12,B)).
+       tau_swing (12,B), carry (95,B), q_ref (12,B)) and, with N > 0, the
+      MPC block (25 + 17 N, B).
     """
     R = [state[i] for i in range(9)]
     Rm = [R[0:3], R[3:6], R[6:9]]
@@ -547,10 +559,46 @@ def commander_pre_plain(c: CommanderConsts, state, carry, cmd, *,
                 carry_new[C_COEF + leg * 21 + k * 3 + ax] = coef[leg][k][ax]
 
     st = [torch.where(eff_stance[leg], one, zero) for leg in range(4)]
-    return (torch.stack(r_out), torch.stack(b_out), torch.stack(st),
-            (zero + c.mu)[None], (zero + c.fz_min)[None],
-            (zero + c.fz_max)[None], torch.stack(tau_swing),
-            torch.stack(carry_new), torch.stack(q_ref))
+    out = (torch.stack(r_out), torch.stack(b_out), torch.stack(st),
+           (zero + c.mu)[None], (zero + c.fz_min)[None],
+           (zero + c.fz_max)[None], torch.stack(tau_swing),
+           torch.stack(carry_new), torch.stack(q_ref))
+    if not mpc_horizon:
+        return out
+
+    # 10. MPC precursor block (control/commander.mpc_precursors): xi0, the
+    #     world levers, the N-step stance schedule sampled from the SAME gait
+    #     clock as this tick's stance mask, the constant-twist reference.
+    #     Products mpc_dt * k are Python floats, rounded once.
+    r20 = R[6]
+    roll = torch.atan2(R[7], R[8])
+    pitch = torch.atan2(-r20, torch.sqrt(torch.maximum(1.0 - r20 * r20,
+                                                       zero)))
+    xi0 = [roll, pitch, yaw, x[0], x[1], x[2]] + w_w + xdot_w + [one]
+    mpc = list(xi0)
+    for leg in range(4):
+        mpc.extend(pcom_foot[leg])
+    # All stance until the gait clock runs; with contact gating, step 0
+    # carries the gated mask.
+    for t in range(mpc_horizon):
+        tk = t_gait + mpc_dt * t
+        for leg in range(4):
+            ph = c.offsets[leg] + tk * c.inv_period
+            ph = ph - torch.floor(ph)
+            stl = (ph <= c.stance_thresh) | ~walking
+            if contact_gate and t == 0:
+                stl = stl & eff_stance[leg]
+            mpc.append(torch.where(stl, one, zero))
+    # Constant-twist reference from cmd_eff = walking ? cmd : 0.
+    vx = torch.where(walking, cmd[0], zero)
+    vy = torch.where(walking, cmd[1], zero)
+    wz = torch.where(walking, cmd[5], zero)
+    for t in range(mpc_horizon):
+        tt = mpc_dt * (t + 1)
+        mpc.extend([zero, zero, yaw + tt * wz, x[0] + tt * vx,
+                    x[1] + tt * vy, zero + c.stand_h, zero, zero, wz, vx, vy,
+                    zero, one])
+    return out + (torch.stack(mpc),)
 
 
 def commander_pre_packed(state_p, carry_p, cmd_p, *, consts: CommanderConsts,
@@ -562,7 +610,8 @@ def commander_pre_packed(state_p, carry_p, cmd_p, *, consts: CommanderConsts,
 
     ``state_p`` needs >= 42 leading comps laid out as in sim/fused_substep
     (the full 58-comp substep state works as-is). Returns (r, b, st, mu,
-    fz_min, fz_max, tau_swing, carry, q_ref).
+    fz_min, fz_max, tau_swing, carry, q_ref) and, with ``mpc_horizon = N >
+    0``, the MPC precursor block (25 + 17 N, B) as a tenth tensor.
 
     CUDA tensors launch the kernel (one launch, counted in
     ``kernels.launch_counts["qct_commander_pre"]``); CPU tensors run
@@ -572,10 +621,9 @@ def commander_pre_packed(state_p, carry_p, cmd_p, *, consts: CommanderConsts,
     if weight_shift:
         raise ValueError("the commander-pre kernel does not support "
                          "weight_shift; use control.commander")
-    if mpc_horizon:
-        raise NotImplementedError(
-            "mpc_horizon > 0 (the MPC precursor block of the commander-pre "
-            "kernel) is the third slice of the port")
+    if mpc_horizon < 0 or (mpc_horizon and not mpc_dt > 0.0):
+        raise ValueError(f"mpc_horizon must be >= 0 and mpc_dt > 0 with it: "
+                         f"{mpc_horizon}, {mpc_dt}")
     B = state_p.shape[1]
     if (state_p.dim() != 2 or state_p.shape[0] < N_STATE_USED
             or tuple(carry_p.shape) != (N_CARRY, B)
@@ -587,10 +635,12 @@ def commander_pre_packed(state_p, carry_p, cmd_p, *, consts: CommanderConsts,
     if state_p.device.type == "cpu":
         return commander_pre_plain(
             consts, state_p, carry_p, cmd_p, contact_gate=contact_gate,
-            raibert_cmd_symmetric=raibert_cmd_symmetric)
+            raibert_cmd_symmetric=raibert_cmd_symmetric,
+            mpc_horizon=mpc_horizon, mpc_dt=mpc_dt)
     return kernels.commander_pre(
         state_p, carry_p, cmd_p,
-        consts.params(contact_gate, raibert_cmd_symmetric))
+        consts.params(contact_gate, raibert_cmd_symmetric, mpc_horizon,
+                      mpc_dt))
 
 
 def pack_comps(a, rows=None):

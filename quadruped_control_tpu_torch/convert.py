@@ -206,3 +206,87 @@ def to_numpy(obj):
     if isinstance(obj, (tuple, list)):
         return type(obj)(to_numpy(v) for v in obj)
     return obj
+
+
+# ---------------------------------------------------------------------------
+# MPC inputs, warm carry and precursor block. The JAX package keeps per-
+# instance arrays (B, N, 13) / (B, N, 4) / (B, N, 12) and, inside its fused
+# tick, tiles (nb, k, rows, 128); the port keeps (k, B).
+# ---------------------------------------------------------------------------
+
+def tiles_to_comps(a, dtype=torch.float32, device=None) -> torch.Tensor:
+    """The JAX package's packed tiles (nb, k, rows, 128) -> (k, nb*rows*128)
+    on ``device`` (a padded batch stays padded)."""
+    a = np.asarray(a)
+    nb, k, rows, lane = a.shape
+    flat = a.transpose(1, 0, 2, 3).reshape(k, nb * rows * lane)
+    return _tensor(np.ascontiguousarray(flat), dtype, resolve_device(device))
+
+
+def comps_to_tiles(a, rows: int = 8) -> np.ndarray:
+    """(k, B) -> the JAX package's tiles (nb, k, rows, 128); B is padded with
+    zeros to a multiple of rows*128."""
+    a = np.asarray(to_numpy(a) if torch.is_tensor(a) else a)
+    k, B = a.shape
+    tile = rows * 128
+    Bp = -(-B // tile) * tile
+    if Bp != B:
+        a = np.concatenate([a, np.zeros((k, Bp - B), a.dtype)], axis=1)
+    return np.ascontiguousarray(
+        a.reshape(k, Bp // tile, rows, 128).transpose(1, 0, 2, 3))
+
+
+def mpc_block_from_numpy(xi0, r_levers, stance_schedule, xi_ref,
+                         dtype=torch.float32, device=None) -> torch.Tensor:
+    """Per-instance MPC inputs — xi0 (B, 13), levers (B, 4, 3), stance
+    schedule (B, N, 4), reference (B, N, 13) — -> the (25 + 17N, B) MPC
+    precursor block (the commander-pre kernel's output, the MPC kernel's
+    packed input)."""
+    xi0 = np.asarray(xi0)
+    B = xi0.shape[0]
+    flat = np.concatenate(
+        [xi0, np.asarray(r_levers).reshape(B, 12),
+         np.asarray(stance_schedule, np.float64).reshape(B, -1),
+         np.asarray(xi_ref).reshape(B, -1)], axis=-1)
+    return _tensor(np.ascontiguousarray(flat.T), dtype,
+                   resolve_device(device))
+
+
+def mpc_block_to_numpy(block, horizon: int) -> dict:
+    """(25 + 17N, B) MPC block -> dict(xi0 (B, 13), r_levers (B, 4, 3),
+    stance_schedule (B, N, 4) bool, xi_ref (B, N, 13))."""
+    a = np.asarray(to_numpy(block)).T
+    B, N = a.shape[0], int(horizon)
+    return dict(xi0=a[:, 0:13], r_levers=a[:, 13:25].reshape(B, 4, 3),
+                stance_schedule=a[:, 25:25 + 4 * N].reshape(B, N, 4) > 0.5,
+                xi_ref=a[:, 25 + 4 * N:].reshape(B, N, 13))
+
+
+def mpc_warm_from_numpy(F, s, z, stance_schedule=None, dtype=torch.float32,
+                        device=None):
+    """The MPC warm carry in the JAX package's per-instance layout — F (B,
+    N, 12) Newtons, s and z (B, 24N) or (B, N, 24) in original units, the
+    schedule (B, N, 4) they were solved against (None: -1, every row resets
+    cold) — -> the fused tick's ``(F_p (12N, B), sz_p (48N, B), sched_p
+    (4N, B))``."""
+    F = np.asarray(F, np.float64)
+    B = F.shape[0]
+    s = np.asarray(s, np.float64).reshape(B, -1)
+    z = np.asarray(z, np.float64).reshape(B, -1)
+    if stance_schedule is None:
+        sched = -np.ones((B, F.reshape(B, -1).shape[1] // 3))
+    else:
+        sched = np.asarray(stance_schedule, np.float64).reshape(B, -1)
+    device = resolve_device(device)
+    return tuple(_tensor(np.ascontiguousarray(a.T), dtype, device)
+                 for a in (F.reshape(B, -1), np.concatenate([s, z], -1),
+                           sched))
+
+
+def mpc_warm_to_numpy(warm_p, horizon: int) -> dict:
+    """Inverse of :func:`mpc_warm_from_numpy`: dict(F (B, N, 12), s (B,
+    24N), z (B, 24N), stance_schedule (B, N, 4) float, -1 = none)."""
+    F, sz, sched = (np.asarray(to_numpy(a)).T for a in warm_p)
+    B, N = F.shape[0], int(horizon)
+    return dict(F=F.reshape(B, N, 12), s=sz[:, :24 * N], z=sz[:, 24 * N:],
+                stance_schedule=sched.reshape(B, N, 4))

@@ -4,6 +4,9 @@
 // (launched there by commander_pre_pallas_packed); the per-instance body is
 // commander_instance in qct_commander.cuh.
 //
+// With mpc_horizon = N > 0 it also writes the MPC precursor block (25 + 17 N
+// words per instance) that the MPC kernel (qct_mpc.cu) consumes.
+//
 // What bounds it on this card: BYTES on paper (143 words in, 144 out per
 // instance against ~2.5e3 float32 operations, ~60 of them sinf/cosf/atan2f
 // calls), and in practice the latency of one dependent chain per thread at
@@ -28,11 +31,12 @@ extern "C" int qct_commander_pre(const float* state, const float* carry,
                                  const float* cmd, float* r, float* b,
                                  float* st, float* mu, float* fzmin,
                                  float* fzmax, float* tau_swing,
-                                 float* carry_out, float* q_ref, int B,
+                                 float* carry_out, float* q_ref, float* mpc,
+                                 int B,
                                  const QctCmdParams* params, void* stream) {
   if (B <= 0) return 0;
-  QctCmdIO io = {state, carry, cmd,       r,         b,    st,
-                 mu,    fzmin, fzmax, tau_swing, carry_out, q_ref};
+  QctCmdIO io = {state, carry,     cmd,   r,  b,  st,  mu,
+                 fzmin, fzmax, tau_swing, carry_out, q_ref, mpc};
   const int block = qct_block_size(B);
   qct_commander_pre_kernel<<<(B + block - 1) / block, block, 0,
                              (cudaStream_t)stream>>>(io, B, *params);

@@ -43,6 +43,8 @@ struct QctCmdParams {
   float a_inv[21];  // [k][0:3] of the sextic's inverse constraint matrix
   float contact_gate;
   int raibert_cmd_symmetric;
+  int mpc_horizon;  // 0: no MPC precursor block
+  double mpc_dt;    // products mpc_dt * k are rounded once, as on the host
 };
 
 // Inputs state (>= 42, B), carry (95, B), cmd (6, B); outputs as named.
@@ -59,6 +61,7 @@ struct QctCmdIO {
   float* tau_swing;  // (12, B)
   float* carry_out;  // (95, B)
   float* q_ref;      // (12, B)
+  float* mpc;        // (25 + 17 N, B) when mpc_horizon = N > 0, else unused
 };
 
 #define QC_TWO_PI 6.283185307179586f
@@ -409,4 +412,44 @@ QCT_DEV void commander_instance(const QctCmdIO& io, int B, int i,
   CO[(size_t)QC_STANDING * B] = standing;
   CO[(size_t)QC_GAIT_TIME * B] = gait_time;
   CO[(size_t)QC_INIT * B] = 1.0f;
+
+  // 10. MPC precursor block (control/commander.mpc_precursors): xi0, the
+  //     world levers, the N-step stance schedule sampled from the same gait
+  //     clock as this tick's stance mask, and the constant-twist reference.
+  if (c.mpc_horizon > 0) {
+    const int Nh = c.mpc_horizon;
+    float* M = io.mpc + i;
+    const float r20 = R[6];
+    const float roll = atan2f(R[7], R[8]);
+    const float pitch = atan2f(-r20, sqrtf(qmax(1.0f - r20 * r20, 0.0f)));
+    const float xi0[13] = {roll,     pitch,     yaw,       x[0],      x[1],
+                           x[2],     w_w[0],    w_w[1],    w_w[2],    xdot_w[0],
+                           xdot_w[1], xdot_w[2], 1.0f};
+    for (int k = 0; k < 13; ++k) M[(size_t)k * B] = xi0[k];
+    for (int k = 0; k < 12; ++k) M[(size_t)(13 + k) * B] = pcom_foot[k];
+    // Schedule: all stance until the gait clock runs; with contact gating,
+    // step 0 carries the gated mask.
+    for (int t = 0; t < Nh; ++t) {
+      const float tk = t_gait + (float)(c.mpc_dt * t);
+      for (int leg = 0; leg < 4; ++leg) {
+        float ph = c.offsets[leg] + tk * c.inv_period;
+        ph = ph - floorf(ph);
+        bool stl = (ph <= c.stance_thresh) || !walking;
+        if (c.contact_gate != 0.0f && t == 0) stl = stl && eff_stance[leg];
+        M[(size_t)(25 + 4 * t + leg) * B] = stl ? 1.0f : 0.0f;
+      }
+    }
+    // Constant-twist reference from cmd_eff = walking ? cmd : 0.
+    const float vx = walking ? cmd[0] : 0.0f;
+    const float vy = walking ? cmd[1] : 0.0f;
+    const float wz = walking ? cmd[5] : 0.0f;
+    for (int t = 0; t < Nh; ++t) {
+      const float tt = (float)(c.mpc_dt * (t + 1));
+      const float ref[13] = {0.0f, 0.0f, yaw + tt * wz, x[0] + tt * vx,
+                             x[1] + tt * vy, c.stand_h, 0.0f, 0.0f, wz, vx,
+                             vy, 0.0f, 1.0f};
+      for (int k = 0; k < 13; ++k)
+        M[(size_t)(25 + 4 * Nh + 13 * t + k) * B] = ref[k];
+    }
+  }
 }

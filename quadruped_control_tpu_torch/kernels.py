@@ -35,13 +35,14 @@ import torch
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_ROOT = Path(__file__).resolve().parent / "_build"
 _SOURCES = ("qct_assemble.cu", "qct_fused_barrier.cu", "qct_fused_polish.cu",
-            "qct_commander.cu", "qct_substep.cu")
+            "qct_commander.cu", "qct_substep.cu", "qct_mpc.cu")
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-fmad=false", "-Xcompiler", "-fPIC")
 
 # Launches of each kernel since the last reset (plain integers).
 launch_counts = {"qct_fused_solve": 0, "qct_assemble": 0,
-                 "qct_commander_pre": 0, "qct_substep": 0}
+                 "qct_commander_pre": 0, "qct_substep": 0,
+                 "qct_mpc_riccati": 0}
 
 # The compiler's resource report (-Xptxas -v) of the build this process made
 # ("" when the library of an earlier build was loaded).
@@ -104,6 +105,7 @@ class CommanderParams(ctypes.Structure):
         ("kff_mg", _F), ("gravity_z", _F), ("mu", _F), ("fz_min", _F),
         ("fz_max", _F), ("a_inv", _F * 21),
         ("contact_gate", _F), ("raibert_cmd_symmetric", ctypes.c_int),
+        ("mpc_horizon", ctypes.c_int), ("mpc_dt", ctypes.c_double),
     ]
 
 
@@ -122,6 +124,25 @@ class SubstepParams(ctypes.Structure):
         ("use_anchor", ctypes.c_int), ("torque_qp", ctypes.c_int),
         ("gravity_comp", ctypes.c_int), ("prefactor_kernel", ctypes.c_int),
     ]
+
+
+class MpcParams(ctypes.Structure):
+    """Mirror of ``QctMpcParams`` in csrc/qct_mpc.cuh (same order)."""
+
+    _fields_ = [
+        ("n_steps", ctypes.c_int), ("iterations", ctypes.c_int),
+        ("track_best", ctypes.c_int),
+        ("dt", _F), ("sfdt", _F), ("g_dt", _F), ("r_alpha", _F),
+        ("sigma_c", _F), ("tau", _F), ("tol", _F), ("relax", _F), ("sf", _F),
+        ("w", _F * 13),
+        ("mass", _F), ("inertia", _F * 3), ("mu", _F), ("fz_min", _F),
+        ("fz_max", _F),
+    ]
+
+
+# Scratch words per horizon step and instance of the MPC kernel (F, s, z,
+# residuals, right-hand side, c, h, best F, feed-forward, gains).
+MPC_WORDS_PER_STEP = 324
 
 
 def _fill(struct, values: dict):
@@ -149,14 +170,40 @@ def _flatten(v):
     return out
 
 
-def commander_params(c, contact_gate, raibert_cmd_symmetric):
+def commander_params(c, contact_gate, raibert_cmd_symmetric, mpc_horizon=0,
+                     mpc_dt=0.0):
     """``control.fused_commander.CommanderConsts`` -> CommanderParams."""
     values = {name: getattr(c, name, None)
               for name, _ in CommanderParams._fields_}
     values.update(l1_sq=c.l1 * c.l1, a_inv=c.a_inv[:, 0:3],
                   contact_gate=contact_gate,
-                  raibert_cmd_symmetric=int(raibert_cmd_symmetric))
+                  raibert_cmd_symmetric=int(raibert_cmd_symmetric),
+                  mpc_horizon=int(mpc_horizon), mpc_dt=float(mpc_dt))
     return _fill(CommanderParams(), values)
+
+
+def mpc_params(st):
+    """``mpc.fused_riccati.MpcSettings`` -> MpcParams. Products of Python
+    floats are formed in double and rounded once. Robot constants that the
+    settings leave None are zeros (the launch then takes them per instance
+    from ``phys``)."""
+    from quadruped_control_tpu_torch.config import GRAVITY
+    from quadruped_control_tpu_torch.mpc.fused_riccati import SIGMA_F
+    from quadruped_control_tpu_torch.ops.dynamics import SWING_ROW_RELAX
+
+    def opt(v, n=None):
+        if v is None:
+            return 0.0 if n is None else [0.0] * n
+        return v
+
+    return _fill(MpcParams(), dict(
+        n_steps=st.n_steps, iterations=st.iterations,
+        track_best=int(st.track_best), dt=st.dt, sfdt=SIGMA_F * st.dt,
+        g_dt=GRAVITY * st.dt, r_alpha=SIGMA_F * SIGMA_F * st.alpha,
+        sigma_c=st.sigma_c, tau=st.tau, tol=st.tol, relax=SWING_ROW_RELAX,
+        sf=SIGMA_F, w=st.state_weights, mass=opt(st.mass),
+        inertia=opt(st.inertia_diag, 3), mu=opt(st.mu),
+        fz_min=opt(st.fz_min), fz_max=opt(st.fz_max)))
 
 
 def substep_params(c):
@@ -237,12 +284,15 @@ def load():
             lib.qct_assemble.argtypes = [vp] * 10 + [
                 ci, ctypes.POINTER(FusedParams), vp]
             lib.qct_assemble.restype = ci
-            lib.qct_commander_pre.argtypes = [vp] * 12 + [
+            lib.qct_commander_pre.argtypes = [vp] * 13 + [
                 ci, ctypes.POINTER(CommanderParams), vp]
             lib.qct_commander_pre.restype = ci
             lib.qct_substep.argtypes = [vp] * 6 + [
                 ci, ci, ctypes.c_float, ctypes.POINTER(SubstepParams), vp]
             lib.qct_substep.restype = ci
+            lib.qct_mpc_riccati.argtypes = [vp] * 10 + [
+                ci, ctypes.POINTER(MpcParams), vp]
+            lib.qct_mpc_riccati.restype = ci
             lib.qct_error_string.argtypes = [ci]
             lib.qct_error_string.restype = ctypes.c_char_p
             _lib = lib
@@ -371,7 +421,8 @@ def commander_pre(state, carry, cmd, params):
     ``state`` (>= 42, B), ``carry`` (95, B), ``cmd`` (6, B); ``params`` is a
     :class:`CommanderParams` (see :func:`commander_params`). Returns (r, b,
     st, mu, fz_min, fz_max, tau_swing, carry, q_ref), contiguous row blocks
-    of ONE allocation."""
+    of ONE allocation, and with ``params.mpc_horizon = N > 0`` a tenth block,
+    the MPC precursor block (25 + 17 N, B)."""
     device = state.device
     B = state.shape[1]
     _require_cuda("state", state, state.shape[0], B, device)
@@ -380,14 +431,17 @@ def commander_pre(state, carry, cmd, params):
     _require_cuda("carry", carry, 95, B, device)
     _require_cuda("cmd", cmd, 6, B, device)
     lib = load()
-    slab = torch.empty((sum(_CMD_OUT_ROWS), B), dtype=torch.float32,
-                       device=device)
-    outs = torch.split(slab, _CMD_OUT_ROWS)
+    rows = _CMD_OUT_ROWS
+    if params.mpc_horizon > 0:
+        rows = rows + (25 + 17 * params.mpc_horizon,)
+    slab = torch.empty((sum(rows), B), dtype=torch.float32, device=device)
+    outs = torch.split(slab, rows)
+    ptrs = [o.data_ptr() for o in outs] + [None] * (10 - len(outs))
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.qct_commander_pre(
-            state.data_ptr(), carry.data_ptr(), cmd.data_ptr(),
-            *(o.data_ptr() for o in outs), B, ctypes.byref(params), stream)
+            state.data_ptr(), carry.data_ptr(), cmd.data_ptr(), *ptrs, B,
+            ctypes.byref(params), stream)
     _check(lib, rc, "qct_commander_pre")
     launch_counts["qct_commander_pre"] += 1
     return outs
@@ -426,3 +480,51 @@ def substep(state, extras, factor, params, n_substeps, h):
     _check(lib, rc, "qct_substep")
     launch_counts["qct_substep"] += 1
     return out
+
+
+def mpc_riccati(block, yaw, phys, warm, params, n_steps):
+    """Launch the MPC kernel (K6) once on ``(k, B)`` CUDA tensors: ``block``
+    (25 + 17N, B) = xi0 | levers | schedule | reference; ``yaw`` (B,) or
+    None (then xi0[2]); ``phys`` (7, B) = [m, Ib, mu, fz_min, fz_max] or None
+    (then the constants of ``params``); ``warm`` None or (F (12N, B), [s | z]
+    (48N, B), schedule (4N, B)). ``params`` is an :class:`MpcParams` (see
+    :func:`mpc_params`). Returns (F (12N, B), diag (6, B), [s | z | F] (60N,
+    B) or None). The kernel's scratch, (324 N, B), is allocated here."""
+    N = int(n_steps)
+    if params.n_steps != N:
+        raise ValueError(f"params are for N = {params.n_steps}, not {N}")
+    device = block.device
+    B = block.shape[1]
+    _require_cuda("block", block, 25 + 17 * N, B, device)
+    if yaw is not None and (yaw.device != device or yaw.dtype != torch.float32
+                            or tuple(yaw.shape) != (B,)
+                            or not yaw.is_contiguous()):
+        raise ValueError(f"yaw: expected contiguous float32 ({B},) on "
+                         f"{device}")
+    if phys is not None:
+        _require_cuda("phys", phys, 7, B, device)
+    if phys is None and params.mass == 0.0:
+        raise ValueError("no robot constants: give phys or set them in params")
+    if warm is not None:
+        for name, a, k in zip(("warm F", "warm sz", "warm schedule"), warm,
+                              (12 * N, 48 * N, 4 * N)):
+            _require_cuda(name, a, k, B, device)
+    lib = load()
+    F = torch.empty((12 * N, B), dtype=torch.float32, device=device)
+    diag = torch.empty((6, B), dtype=torch.float32, device=device)
+    wout = (None if warm is None else
+            torch.empty((60 * N, B), dtype=torch.float32, device=device))
+    scratch = torch.empty((MPC_WORDS_PER_STEP * N, B), dtype=torch.float32,
+                          device=device)
+    wptr = [None] * 3 if warm is None else [a.data_ptr() for a in warm]
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.qct_mpc_riccati(
+            block.data_ptr(), None if yaw is None else yaw.data_ptr(),
+            None if phys is None else phys.data_ptr(), *wptr,
+            F.data_ptr(), diag.data_ptr(),
+            None if wout is None else wout.data_ptr(), scratch.data_ptr(),
+            B, ctypes.byref(params), stream)
+    _check(lib, rc, "qct_mpc_riccati")
+    launch_counts["qct_mpc_riccati"] += 1
+    return F, diag, wout

@@ -5,9 +5,12 @@ One control tick is exactly three launches (four with ``qp_tail``):
 
   1. commander-pre (control/fused_commander.py, K4): measurement, FK, the
      standing/gait state machine, Raibert planning, sextic tracking, IK,
-     swing PD -> QP precursors + swing torques + new carry;
+     swing PD -> QP precursors + swing torques + new carry (+ the MPC
+     precursor block with ``controller="mpc"``);
   2. the fused GRF-QP kernel (solver/fused.py, K1) consuming those tensors
-     directly, warm-started from the previous tick's solution;
+     directly, warm-started from the previous tick's solution — or, with
+     ``controller="mpc"``, the receding-horizon MPC kernel
+     (mpc/fused_riccati.py, K6), whose step-0 forces drive the stance legs;
   3. the whole-body substep kernel (sim/fused_substep.py, K5,
      ``torque_input="qp"``): torque mapping as the prologue, then the
      N-substep physics loop.
@@ -18,9 +21,9 @@ three launches and nothing else (no allocation besides the kernels' outputs,
 no synchronisation). Packing happens once per rollout at the boundary. The
 loop is a Python loop.
 
-``controller="mpc"`` (and with it ``tick.held``,
-``rollout_whole_body_fused_decimated``, ``init_mpc_warm_packed``) belongs to
-the third slice of the port and raises ``NotImplementedError``.
+``rollout_whole_body_fused_decimated`` re-solves the MPC every
+``mpc_every`` ticks and holds its forces in between (``tick.held``: K4 + K5,
+no K6).
 """
 
 from __future__ import annotations
@@ -38,6 +41,11 @@ from quadruped_control_tpu_torch.control.fused_commander import (
     pack_comps,
     unpack_commander_carry,
 )
+from quadruped_control_tpu_torch.mpc.fused_riccati import (
+    MC as _MC,
+    MpcSettings,
+    solve_mpc_qp_riccati_packed,
+)
 from quadruped_control_tpu_torch.sim.fused_substep import (
     comps_to_state,
     make_fused_stepper,
@@ -53,11 +61,6 @@ from quadruped_control_tpu_torch.solver.fused import (
     solve_grf_qp_fused_packed,
     solve_grf_qp_tail_packed,
 )
-
-_MPC_MSG = ("the MPC tick (controller='mpc': the Riccati kernel of "
-            "mpc/pallas_riccati.py as kernel 2) is the third slice of the "
-            "port; use controller='balance'")
-
 
 class FusedRolloutTrace(NamedTuple):
     """Per-tick trace of the fused loop (a light cousin of
@@ -94,7 +97,9 @@ def make_fused_tick(model: WholeBodyModel, cfg: ControlConfig,
                     contact_gate: float = 0.0,
                     raibert_cmd_symmetric: bool = False,
                     gravity_comp: bool = False,
-                    controller: str = "balance"):
+                    controller: str = "balance", mpc_horizon: int = 8,
+                    mpc_dt: float = 0.03, mpc_iterations: int = 15,
+                    mpc_state_weights=None, mpc_warm_start: bool = False):
     """Build the fused tick: ``tick(state_p, carry_p, cmd_p, dt,
     n_substeps) -> (state_p, carry_p, (st_p, diag_p))`` on ``(k, B)``
     tensors.
@@ -120,12 +125,25 @@ def make_fused_tick(model: WholeBodyModel, cfg: ControlConfig,
 
     ``qp_iterations=None`` resolves to 6 warm / 12 cold, the reference's
     operating points. ``rows`` / ``qp_tail_rows`` are ignored (tile heights
-    of the TPU kernels). ``controller="mpc"`` raises; the ``mpc_*`` options
-    come with that controller.
+    of the TPU kernels).
+
+    ``controller="mpc"`` replaces kernel 2 with the receding-horizon MPC
+    kernel (K6): commander-pre additionally emits the MPC precursor block
+    and the tick applies the horizon's step-0 forces. ``qp_*`` options are
+    ignored; ``mpc_horizon`` / ``mpc_dt`` / ``mpc_iterations`` /
+    ``mpc_state_weights`` (one (13,) diagonal) mirror
+    control/commander.commander_step. ``mpc_warm_start=True`` threads the
+    previous tick's horizon solution (F, s, z) and its stance schedule
+    through the loop carry (schedule-changed rows reset cold): the tick
+    takes the warm 6-argument form, ``warm_p = (F_p (12N, B), sz_p (48N, B),
+    sched_p (4N, B))``, first built by :func:`init_mpc_warm_packed` (a -1
+    schedule: tick 1 is exactly the cold start). The recommended operating
+    point is ``mpc_warm_start=True, mpc_iterations=8`` ("warm-8"). The MPC
+    tick also carries ``.held`` (K4 + K5 with held forces, for
+    :func:`rollout_whole_body_fused_decimated`), ``.pre``, ``.solve``,
+    ``.mpc_horizon``, ``.mpc_dt`` and, warm, ``.init_warm``.
     """
-    if controller == "mpc":
-        raise NotImplementedError(_MPC_MSG)
-    if controller != "balance":
+    if controller not in ("balance", "mpc"):
         raise ValueError(f"controller must be 'balance'|'mpc': {controller}")
     if qp_iterations is None:
         qp_iterations = 6 if qp_warm_start else 12
@@ -137,6 +155,11 @@ def make_fused_tick(model: WholeBodyModel, cfg: ControlConfig,
     stepper = make_fused_stepper(
         model, cfg, contact, prefactor="kernel", torque_input="qp",
         gravity_comp=gravity_comp)
+    if controller == "mpc":
+        return _make_mpc_tick(
+            consts, stepper, cfg, contact_gate, raibert_cmd_symmetric,
+            mpc_horizon, mpc_dt, mpc_iterations, mpc_state_weights,
+            mpc_warm_start)
     qp_kw = dict(
         s_diag=tuple(cfg.balance.s_diag), w_diag=float(cfg.balance.w_diag),
         iterations=qp_iterations, polish=qp_polish,
@@ -165,11 +188,6 @@ def make_fused_tick(model: WholeBodyModel, cfg: ControlConfig,
             out = solve_grf_qp_tail_packed(*qp_in, *out, **tail_kw)
         return out
 
-    def step(state_p, x_p, tausw_p, st_p, dt, n_substeps):
-        if x_p.dtype != state_p.dtype:
-            x_p = x_p.to(state_p.dtype)
-        return stepper.packed(state_p, x_p, tausw_p, st_p, dt, n_substeps)
-
     if qp_warm_start:
         def tick(state_p, carry_p, warm_p, cmd_p, dt: float,
                  n_substeps: int):
@@ -177,7 +195,8 @@ def make_fused_tick(model: WholeBodyModel, cfg: ControlConfig,
              _qref_p) = pre(state_p, carry_p, cmd_p)
             x_p, s_p, z_p, diag_p = solve(
                 (r_p, b_p, st_p, mu_p, fmin_p, fmax_p), warm_p)
-            state_new_p = step(state_p, x_p, tausw_p, st_p, dt, n_substeps)
+            state_new_p = _step(stepper, state_p, x_p, tausw_p, st_p, dt,
+                                n_substeps)
             st32 = st_p if st_p.dtype == torch.float32 else st_p.float()
             return (state_new_p, carry_new_p, (x_p, s_p, z_p, st32),
                     (st_p, diag_p))
@@ -187,7 +206,8 @@ def make_fused_tick(model: WholeBodyModel, cfg: ControlConfig,
              _qref_p) = pre(state_p, carry_p, cmd_p)
             x_p, _s_p, _z_p, diag_p = solve(
                 (r_p, b_p, st_p, mu_p, fmin_p, fmax_p), ())
-            state_new_p = step(state_p, x_p, tausw_p, st_p, dt, n_substeps)
+            state_new_p = _step(stepper, state_p, x_p, tausw_p, st_p, dt,
+                                n_substeps)
             return state_new_p, carry_new_p, (st_p, diag_p)
 
     tick.pre = pre
@@ -210,12 +230,117 @@ def init_qp_warm_packed(B: int, rows=None, dtype=torch.float32, device=None):
             torch.zeros((_M, B), **kw), -torch.ones((4, B), **kw))
 
 
-def init_mpc_warm_packed(*args, **kwargs):
-    raise NotImplementedError(_MPC_MSG)
+def _step(stepper, state_p, x_p, tausw_p, st_p, dt, n_substeps):
+    if x_p.dtype != state_p.dtype:
+        x_p = x_p.to(state_p.dtype)
+    return stepper.packed(state_p, x_p, tausw_p, st_p, dt, n_substeps)
 
 
-def rollout_whole_body_fused_decimated(*args, **kwargs):
-    raise NotImplementedError(_MPC_MSG)
+def mpc_diag(dg):
+    """Reorder the MPC kernel's diag [conv, pr, dr, gap, nu, 0] into the QP
+    diag convention [cert, conv, pr, dr, gap, nu] the rollout trace reads
+    (row 1 = converged)."""
+    return torch.cat([torch.zeros_like(dg[0:1]), dg[0:5]])
+
+
+def _make_mpc_tick(consts, stepper, cfg, contact_gate, raibert_cmd_symmetric,
+                   mpc_horizon, mpc_dt, mpc_iterations, mpc_state_weights,
+                   mpc_warm_start):
+    """The MPC tick: K4 with the MPC block -> K6 -> K5 (three launches)."""
+    N = int(mpc_horizon)
+    bal = cfg.balance
+    mpc_kw = dict(
+        n_steps=N, dt=float(mpc_dt), mass=float(bal.mass),
+        inertia_diag=tuple(float(v) for v in bal.inertia_diag),
+        mu=float(bal.mu), fz_min=float(bal.fz_min), fz_max=float(bal.fz_max),
+        state_weights=mpc_state_weights, iterations=int(mpc_iterations))
+    settings = MpcSettings(**mpc_kw)
+    nsz = 2 * _MC * N
+
+    def pre(state_p, carry_p, cmd_p):
+        return commander_pre_packed(
+            state_p, carry_p, cmd_p, consts=consts,
+            contact_gate=contact_gate,
+            raibert_cmd_symmetric=raibert_cmd_symmetric, mpc_horizon=N,
+            mpc_dt=mpc_dt)
+
+    def solve(mpc_p, warm_p=None):
+        return solve_mpc_qp_riccati_packed(mpc_p, warm_p, settings=settings,
+                                           **mpc_kw)
+
+    def next_warm(mpc_p, szf_p):
+        # The kernel's [s | z | F] of the FINAL iterate (a consistent
+        # primal-dual triple; F_p is the best-merit control output and is not
+        # recycled) + the schedule it was solved against.
+        sched = mpc_p[25:25 + 4 * N]
+        if sched.dtype != torch.float32:
+            sched = sched.float()
+        return (szf_p[nsz:], szf_p[:nsz], sched)
+
+    if mpc_warm_start:
+        def tick(state_p, carry_p, warm_p, cmd_p, dt: float,
+                 n_substeps: int):
+            (_r, _b, st_p, _mu, _fmin, _fmax, tausw_p, carry_new_p, _qref,
+             mpc_p) = pre(state_p, carry_p, cmd_p)
+            F_p, dg, szf_p = solve(mpc_p, warm_p)
+            state_new_p = _step(stepper, state_p, F_p[0:12], tausw_p, st_p,
+                                dt, n_substeps)
+            return (state_new_p, carry_new_p, next_warm(mpc_p, szf_p),
+                    (st_p, mpc_diag(dg)))
+    else:
+        def tick(state_p, carry_p, cmd_p, dt: float, n_substeps: int):
+            (_r, _b, st_p, _mu, _fmin, _fmax, tausw_p, carry_new_p, _qref,
+             mpc_p) = pre(state_p, carry_p, cmd_p)
+            F_p, dg = solve(mpc_p)
+            state_new_p = _step(stepper, state_p, F_p[0:12], tausw_p, st_p,
+                                dt, n_substeps)
+            return state_new_p, carry_new_p, (st_p, mpc_diag(dg))
+
+    def held(state_p, carry_p, x_hold_p, cmd_p, dt: float, n_substeps: int):
+        """Hold tick between MPC solves: commander-pre runs (swing PD, gait,
+        planning) without the MPC block, the held forces drive the stance
+        legs; the MPC kernel is not launched."""
+        (_r, _b, st_p, _mu, _fmin, _fmax, tausw_p, carry_new_p,
+         _qref) = commander_pre_packed(
+            state_p, carry_p, cmd_p, consts=consts,
+            contact_gate=contact_gate,
+            raibert_cmd_symmetric=raibert_cmd_symmetric)
+        state_new_p = _step(stepper, state_p, x_hold_p, tausw_p, st_p, dt,
+                            n_substeps)
+        return state_new_p, carry_new_p, st_p
+
+    tick.pre = pre
+    tick.solve = solve
+    tick.held = held
+    tick.next_warm = next_warm
+    tick.consts = consts
+    tick.stepper = stepper
+    tick.settings = settings
+    tick.warm_start = bool(mpc_warm_start)
+    tick.mpc_horizon = N
+    tick.mpc_dt = float(mpc_dt)
+    tick.launches_per_tick = 3
+    if mpc_warm_start:
+        def init_warm(B, rows=None, dtype=torch.float32, device=None):
+            return init_mpc_warm_packed(B, horizon=N, dtype=dtype,
+                                        device=device)
+        tick.init_warm = init_warm
+    return tick
+
+
+def init_mpc_warm_packed(B: int, *, horizon: int, rows=None,
+                         dtype=torch.float32, device=None):
+    """First-tick warm carry for an ``mpc_warm_start`` fused tick over ``B``
+    instances: zero (F, [s | z]) plus a schedule of -1, which mismatches
+    every current schedule bit, so the MPC kernel resets every row cold —
+    tick 1 is exactly the cold start. ``rows`` is ignored."""
+    from quadruped_control_tpu_torch import resolve_device
+
+    kw = dict(dtype=dtype, device=resolve_device(device))
+    N = int(horizon)
+    return (torch.zeros((12 * N, B), **kw),
+            torch.zeros((2 * _MC * N, B), **kw),
+            -torch.ones((4 * N, B), **kw))
 
 
 def _flat_batch(batch):
@@ -288,16 +413,18 @@ def rollout_whole_body_fused(plant: WholeBodyState, carry: CommanderCarry,
                              cmd_schedule: bool = False
                              ) -> FusedWholeBodyResult:
     """Run ``steps`` fused control ticks (drop-in sibling of
-    sim/rollout.rollout_whole_body for the balance-QP controller).
+    sim/rollout.rollout_whole_body for the balance-QP and MPC
+    controllers).
 
     Args:
       tick: built by :func:`make_fused_tick`.
       cmd_twist: (..., 6), broadcast over the batch — or, with
         ``cmd_schedule=True``, a (steps, ..., 6) PER-TICK command schedule
         (build with control/rollout.piecewise_command).
-      warm: for a ``qp_warm_start`` tick, the QP warm carry ``(x_p, s_p,
-        z_p, st_p)`` from a previous rollout's ``.warm``. None = cold first
-        tick. The final warm carry comes back in ``result.warm``.
+      warm: for a warm-started tick, the warm carry from a previous
+        rollout's ``.warm`` (the QP's ``(x_p, s_p, z_p, st_p)``, or the MPC's
+        ``(F_p, sz_p, sched_p)``). None = cold first tick. The final warm
+        carry comes back in ``result.warm``.
 
     The plant's device decides where the loop runs (CUDA: the kernels; CPU:
     their plain versions).
@@ -313,8 +440,8 @@ def rollout_whole_body_fused(plant: WholeBodyState, carry: CommanderCarry,
     warm_start = tick.warm_start
     warm_p = None
     if warm_start:
-        warm_p = warm if warm is not None else init_qp_warm_packed(
-            B, device=device)
+        init_warm = getattr(tick, "init_warm", init_qp_warm_packed)
+        warm_p = warm if warm is not None else init_warm(B, device=device)
 
     rec = None
     if record:
@@ -388,3 +515,102 @@ def rollout_whole_body_fused_chunked(plant: WholeBodyState,
         trace = FusedRolloutTrace(*(torch.cat(parts) for parts in zip(*traces)))
     return FusedWholeBodyResult(plant=plant, carry=carry, trace=trace,
                                 warm=warm)
+
+
+def rollout_whole_body_fused_decimated(plant: WholeBodyState,
+                                       carry: CommanderCarry, cmd_twist,
+                                       steps: int, tick,
+                                       mpc_every: int = 4,
+                                       n_substeps: int = 10,
+                                       record: bool = False,
+                                       cmd_schedule: bool = False,
+                                       hold_mode: str = "zoh"
+                                       ) -> FusedWholeBodyResult:
+    """Fused MPC closed loop with the MPC re-solved every ``mpc_every``
+    ticks: each group is one full MPC tick, then ``mpc_every - 1`` held
+    ticks (K4 + K5 with held horizon forces) — the MPC kernel's cost drops
+    by ~``mpc_every``. ``steps`` must be a multiple of ``mpc_every``. Trace
+    entries are per GROUP (one per MPC solve, post-group state). Needs a
+    ``controller="mpc"`` tick. A warm tick threads its horizon carry across
+    solve groups (the carry ages ``mpc_every`` ticks between solves; the
+    kernel's schedule-changed rows still reset cold); the final one comes
+    back in ``result.warm``.
+
+    ``hold_mode``: what the held ticks apply.
+      - "zoh": the step-0 forces F_0 for the whole window — consistent when
+        the hold window fits one horizon step (mpc_every * dt <= mpc_dt).
+      - "horizon": held tick k applies the horizon's own plan for that
+        moment, F_{floor(k dt / mpc_dt)}; equal to "zoh" when every k maps
+        to step 0.
+
+    ``cmd_schedule=True``: (steps, ..., 6) per-tick commands; the solve tick
+    takes the group's first command, the held ticks the rest."""
+    if steps % mpc_every != 0:
+        raise ValueError(f"steps ({steps}) must be a multiple of mpc_every "
+                         f"({mpc_every})")
+    if not hasattr(tick, "held"):
+        raise ValueError("needs a controller='mpc' fused tick")
+    if hold_mode not in ("zoh", "horizon"):
+        raise ValueError(f"hold_mode must be 'zoh'|'horizon': {hold_mode}")
+    dt = tick.consts.dt
+    if hold_mode == "horizon":
+        # +1e-9: a deterministic floor at exact tick / mpc_dt boundaries.
+        hold_idx = [min(int(k * dt / tick.mpc_dt + 1e-9),
+                        tick.mpc_horizon - 1) for k in range(1, mpc_every)]
+    else:
+        hold_idx = [0] * (mpc_every - 1)
+    batch = tuple(plant.x.shape[:-1])
+    dtype, device = plant.x.dtype, plant.x.device
+    state_p, B = pack_whole_body_state(plant)
+    carry_b = _broadcast_carry(carry, batch)
+    carry_p = pack_commander_carry(carry_b, batch=B)
+    cmd_p = _pack_cmd(cmd_twist, batch, B, dtype, device,
+                      steps=steps if cmd_schedule else None)
+    warm_p = tick.init_warm(B, device=device) if tick.warm_start else None
+    groups = steps // mpc_every
+    rec = None
+    if record:
+        rec = (torch.empty((groups, 3, B), dtype=dtype, device=device),
+               torch.empty((groups, B), dtype=dtype, device=device),
+               torch.empty((groups, 4, B), dtype=dtype, device=device),
+               torch.empty((groups, B), dtype=torch.float32, device=device))
+
+    for g in range(groups):
+        t0 = g * mpc_every
+        cmd_solve = cmd_p[t0] if cmd_schedule else cmd_p
+        (_r, _b, st_p, _mu, _fmin, _fmax, tausw_p, carry_p, _qref,
+         mpc_p) = tick.pre(state_p, carry_p, cmd_solve)
+        if warm_p is not None:
+            F_p, dg, szf_p = tick.solve(mpc_p, warm_p)
+            warm_p = tick.next_warm(mpc_p, szf_p)
+        else:
+            F_p, dg = tick.solve(mpc_p)
+        state_p = _step(tick.stepper, state_p, F_p[0:12], tausw_p, st_p, dt,
+                        n_substeps)
+        for k, i in enumerate(hold_idx):
+            cmd_h = cmd_p[t0 + 1 + k] if cmd_schedule else cmd_p
+            state_p, carry_p, _st = tick.held(
+                state_p, carry_p, F_p[12 * i:12 * i + 12], cmd_h, dt,
+                n_substeps)
+        if record:
+            rec[0][g].copy_(state_p[9:12])
+            rec[1][g].copy_(carry_p[0])
+            rec[2][g].copy_(st_p)
+            rec[3][g].copy_(dg[0])
+
+    trace = None
+    if record:
+        x_r, standing_r, st_r, conv_r = rec
+        trace = FusedRolloutTrace(
+            x=x_r.transpose(1, 2).reshape((groups,) + batch + (3,)),
+            standing=standing_r.reshape((groups,) + batch) > 0.5,
+            in_stance=st_r.transpose(1, 2).reshape(
+                (groups,) + batch + (4,)) > 0.5,
+            qp_converged=conv_r.reshape((groups,) + batch) > 0.5,
+        )
+    return FusedWholeBodyResult(
+        plant=unpack_whole_body_state(state_p, batch),
+        carry=unpack_commander_carry(carry_p, batch, carry_b),
+        trace=trace,
+        warm=warm_p,
+    )

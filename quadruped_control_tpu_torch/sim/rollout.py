@@ -50,6 +50,10 @@ def rollout_whole_body(plant: WholeBodyState, carry: CommanderCarry,
                        qp_iterations: int = 12, qp_polish: bool = False,
                        qp_backend: str = "jnp",
                        record: bool = True, controller: str = "balance",
+                       mpc_horizon: int = 8, mpc_dt: float = 0.05,
+                       mpc_iterations: int = 25,
+                       mpc_backend: str = "structured",
+                       mpc_state_weights=None,
                        weight_shift: float = 0.0,
                        m_update: str = "tick",
                        contact_gate: float = 0.0,
@@ -76,8 +80,9 @@ def rollout_whole_body(plant: WholeBodyState, carry: CommanderCarry,
     ``cmd_schedule=True``: ``cmd_twist`` is a (steps, ..., 6) PER-TICK
     command (build with control/rollout.piecewise_command).
 
-    ``controller="mpc"`` raises (third slice of the port); the ``mpc_*``
-    options come with that controller.
+    ``controller="mpc"`` with the ``mpc_*`` options runs the receding-
+    horizon MPC (control/commander.commander_step); ``mpc_backend=
+    "riccati-pallas"`` solves it in the MPC kernel on CUDA tensors.
     """
     dt = 1.0 / cfg.frequency
     if stepper is not None and n_substeps is None:
@@ -106,6 +111,9 @@ def rollout_whole_body(plant: WholeBodyState, carry: CommanderCarry,
             com, joints, cc, cmd, dt, cfg,
             qp_iterations=qp_iterations, qp_polish=qp_polish,
             qp_backend=qp_backend, controller=controller,
+            mpc_horizon=mpc_horizon, mpc_dt=mpc_dt,
+            mpc_iterations=mpc_iterations, mpc_backend=mpc_backend,
+            mpc_state_weights=mpc_state_weights,
             weight_shift=weight_shift, contact_gate=contact_gate,
             raibert_cmd_symmetric=raibert_cmd_symmetric,
             heading_hold=heading_hold,

@@ -281,25 +281,26 @@ def test_commander_step_qp_backends(backend):
 
 
 def test_mpc_is_the_third_slice():
+    """controller="mpc" runs (tests/test_torch_commander_mpc.py holds it
+    against the JAX package); arguments the step does not know raise."""
     c, d = _step_inputs(50)
     tcom, tj = torch_com_joints(d)
-    with pytest.raises(NotImplementedError, match="third slice"):
-        tcmd.commander_step(tcom, tj, torch_commander_carry(c),
-                            torch.as_tensor(d["cmd"]), DT, TCFG,
-                            controller="mpc")
-    with pytest.raises(NotImplementedError):
-        tcmd.mpc_precursors()
+    args = (tcom, tj, torch_commander_carry(c), torch.as_tensor(d["cmd"]), DT,
+            TCFG)
+    out, new = tcmd.commander_step(*args, controller="mpc", mpc_horizon=3,
+                                   mpc_iterations=6)
+    assert out.forces_horizon.shape == (B, 3, 12)
+    assert torch.equal(out.forces_world, out.forces_horizon[:, 0])
+    assert torch.equal(new.qp_x, out.forces_world)
+    assert bool(torch.isfinite(out.torques).all())
+    balance, _ = tcmd.commander_step(*args)
+    assert balance.forces_horizon is None
+    with pytest.raises(ValueError, match="mpc_backend"):
+        tcmd.commander_step(*args, controller="mpc", mpc_backend="osqp")
     with pytest.raises(ValueError):
-        tcmd.commander_step(tcom, tj, torch_commander_carry(c),
-                            torch.as_tensor(d["cmd"]), DT, TCFG,
-                            controller="lqr")
+        tcmd.commander_step(*args, controller="lqr")
     with pytest.raises(TypeError):
-        tcmd.commander_step(tcom, tj, torch_commander_carry(c),
-                            torch.as_tensor(d["cmd"]), DT, TCFG, horizon=3)
-    # The MPC options come with the MPC controller: none is taken and dropped.
-    with pytest.raises(TypeError, match="mpc_horizon"):
-        tcmd.commander_step(tcom, tj, torch_commander_carry(c),
-                            torch.as_tensor(d["cmd"]), DT, TCFG, mpc_horizon=8)
+        tcmd.commander_step(*args, horizon=3)
 
 
 @pytest.mark.parametrize("ramp", [0.0, 0.5])

@@ -148,9 +148,11 @@ def test_unsupported_options_raise():
     s = torch.zeros(58, 4, dtype=torch.float64)
     c = torch.zeros(95, 4, dtype=torch.float64)
     m = torch.zeros(6, 4, dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="third slice"):
-        fc.commander_pre_packed(s, c, m, consts=consts, mpc_horizon=8,
-                                mpc_dt=0.03)
+    # The MPC block needs its step.
+    with pytest.raises(ValueError, match="mpc_dt"):
+        fc.commander_pre_packed(s, c, m, consts=consts, mpc_horizon=8)
+    assert len(fc.commander_pre_packed(s, c, m, consts=consts, mpc_horizon=8,
+                                       mpc_dt=0.03)) == 10
     with pytest.raises(ValueError, match="weight_shift"):
         fc.commander_pre_packed(s, c, m, consts=consts, weight_shift=0.5)
     with pytest.raises(ValueError):

@@ -23,7 +23,7 @@ compiles take tens of minutes on a CPU, so it is not run here.
 Then the loop: warm tick 1 bitwise equals cold tick 1, chunked equals
 unchunked bitwise (warm carry across chunks, per-tick command schedule,
 trace), pack/unpack round trips, the options reach K4, ``controller="mpc"``
-raises.
+builds the MPC tick (held in tests/test_torch_fused_mpc_tick.py).
 """
 
 import numpy as np
@@ -363,17 +363,24 @@ def test_pack_unpack_round_trips():
 
 
 def test_mpc_is_the_third_slice():
-    with pytest.raises(NotImplementedError, match="third slice"):
-        ft.make_fused_tick(TM, TCFG, controller="mpc")
-    with pytest.raises(NotImplementedError, match="third slice"):
-        ft.init_mpc_warm_packed(1, horizon=8, rows=8)
-    with pytest.raises(NotImplementedError, match="third slice"):
-        ft.rollout_whole_body_fused_decimated()
+    """controller="mpc" builds the MPC tick (tests/test_torch_fused_mpc_tick.py
+    holds it); the balance tick has none of its attributes, and unknown
+    arguments raise."""
+    mpc = ft.make_fused_tick(TM, TCFG, controller="mpc")
+    assert hasattr(mpc, "held") and mpc.launches_per_tick == 3
+    assert (mpc.mpc_horizon, mpc.mpc_dt) == (8, 0.03)
+    assert not mpc.warm_start and not hasattr(mpc, "init_warm")
+    warm = ft.init_mpc_warm_packed(5, horizon=8, rows=8, device="cpu")
+    assert [tuple(a.shape) for a in warm] == [(96, 5), (384, 5), (32, 5)]
+    with pytest.raises(ValueError, match="mpc"):
+        ft.rollout_whole_body_fused_decimated(
+            *_rollout_inputs((2,)), torch.zeros(6), 4,
+            ft.make_fused_tick(TM32, TCFG))
     with pytest.raises(ValueError, match="controller"):
         ft.make_fused_tick(TM, TCFG, controller="lqr")
     with pytest.raises(TypeError, match="horizon"):
         ft.make_fused_tick(TM, TCFG, horizon=8)
-    # The MPC options come with the MPC controller: none is taken and dropped.
-    with pytest.raises(TypeError, match="mpc_horizon"):
-        ft.make_fused_tick(TM, TCFG, mpc_horizon=8, mpc_dt=0.03)
-    assert not hasattr(ft.make_fused_tick(TM, TCFG), "held")
+    # The MPC options are taken (and unused) by the balance tick, as in the
+    # JAX package.
+    balance = ft.make_fused_tick(TM, TCFG, mpc_horizon=8, mpc_dt=0.03)
+    assert not hasattr(balance, "held")

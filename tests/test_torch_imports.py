@@ -51,12 +51,15 @@ def test_port_has_the_expected_modules():
                 "control/fused_commander.py", "sim/__init__.py",
                 "sim/model.py", "sim/dynamics.py", "sim/plant.py",
                 "sim/rollout.py", "sim/fused_substep.py",
-                "sim/fused_tick.py"):
+                "sim/fused_tick.py",
+                # the receding-horizon MPC tick
+                "mpc/__init__.py", "mpc/horizon.py", "mpc/structured.py",
+                "mpc/fused_riccati.py"):
         assert f"quadruped_control_tpu_torch/{rel}" in have
     csrc = ROOT / "quadruped_control_tpu_torch" / "csrc"
     assert sorted(p.name for p in csrc.glob("*.cu")) == [
         "qct_assemble.cu", "qct_commander.cu", "qct_fused_barrier.cu",
-        "qct_fused_polish.cu", "qct_substep.cu"]
+        "qct_fused_polish.cu", "qct_mpc.cu", "qct_substep.cu"]
 
 
 def test_every_kernel_source_is_built_and_counted():
@@ -69,7 +72,7 @@ def test_every_kernel_source_is_built_and_counted():
         p.name for p in csrc.glob("*.cu"))
     assert set(kernels.launch_counts) == {
         "qct_fused_solve", "qct_assemble", "qct_commander_pre",
-        "qct_substep"}
+        "qct_substep", "qct_mpc_riccati"}
     kernels.reset_launch_counts()
     assert not any(kernels.launch_counts.values())
 

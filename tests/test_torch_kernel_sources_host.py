@@ -1,15 +1,18 @@
-"""PyTorch port: the SOURCES of the commander-pre (K4) and substep (K5) CUDA
-kernels, compiled for the host and held against the plain PyTorch versions.
+"""PyTorch port: the SOURCES of the commander-pre (K4), substep (K5) and MPC
+(K6) CUDA kernels, compiled for the host and held against the plain PyTorch
+versions.
 
-A CUDA kernel cannot run without a card, but the per-instance bodies of K4
-and K5 (csrc/qct_commander.cuh, csrc/qct_substep.cuh) are plain C++ behind a
-macro: tests/torch_port_host_shim.cpp loops them over the batch, ``g++
+A CUDA kernel cannot run without a card, but the per-instance bodies of K4,
+K5 and K6 (csrc/qct_commander.cuh, csrc/qct_substep.cuh, csrc/qct_mpc.cuh)
+are plain C++ behind a macro: tests/torch_port_host_shim.cpp loops them over the batch, ``g++
 -ffp-contract=off`` builds it, and the same ctypes parameter structs the CUDA
 launchers fill are handed to it. Float32 on both sides. This is a rehearsal
 of the kernels' arithmetic, not of the kernels: host ``sinf``/``atan2f`` and
 torch's CPU ones differ in the last bits, so the tolerances are those of
 float32 round-off carried through the chain (on the card K4 is bitwise equal
-to its plain version, chip_smoke.py).
+to its plain version, chip_smoke.py). K6 is held as on the card: by the
+objective of its horizon forces and by its convergence statistics (a near-tie
+of the merit can flip the best-iterate pick on a lane).
 """
 
 import ctypes
@@ -34,7 +37,7 @@ from quadruped_control_tpu_torch.utils.scenarios import (
     commander_carry_walk,
     whole_body_walk_states,
 )
-from torch_port_helpers import carry_comps_np, state_comps_np
+from torch_port_helpers import carry_comps_np, mpc_problem_np, state_comps_np
 
 torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parent.parent
@@ -60,12 +63,15 @@ def host(tmp_path_factory):
     assert done.returncode == 0, done.stderr
     lib = ctypes.CDLL(str(out))
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.host_commander_pre.argtypes = [vp] * 12 + [
+    lib.host_commander_pre.argtypes = [vp] * 13 + [
         ci, ctypes.POINTER(kernels.CommanderParams)]
     lib.host_commander_pre.restype = None
     lib.host_substep.argtypes = [vp] * 6 + [
         ci, ci, ctypes.c_float, ctypes.POINTER(kernels.SubstepParams)]
     lib.host_substep.restype = None
+    lib.host_mpc_riccati.argtypes = [vp] * 10 + [
+        ci, ctypes.POINTER(kernels.MpcParams)]
+    lib.host_mpc_riccati.restype = None
     return lib
 
 
@@ -74,9 +80,9 @@ def f32(a):
                            dtype=torch.float32).contiguous()
 
 
-@pytest.mark.parametrize("gate,sym", [(0.0, False), (0.01, True)],
+@pytest.mark.parametrize("gate,sym,nh", [(0.0, False, 0), (0.01, True, 8)],
                          ids=["reference", "gate+symmetric"])
-def test_commander_source_matches_plain_version(host, gate, sym):
+def test_commander_source_matches_plain_version(host, gate, sym, nh):
     """Four chained ticks, B = 256. Continuous outputs, (rtol, atol): levers,
     joint targets and the carry (1e-5, 2e-5); the right-hand side (1e-5,
     2e-4: gains of 1e2..1e3 on pose errors); the swing torques (5e-3, 1e-2:
@@ -85,7 +91,7 @@ def test_commander_source_matches_plain_version(host, gate, sym):
     most 2 lanes per tick within an ulp of a threshold (none seen)."""
     B = 256
     consts = fc.CommanderConsts(CFG, DT)
-    params = consts.params(gate, sym)
+    params = consts.params(gate, sym, nh, 0.03)
     carry = f32(carry_comps_np(commander_carry_walk(11, B, CFG)))
     crossed = 0
     for tick in range(4):
@@ -93,14 +99,16 @@ def test_commander_source_matches_plain_version(host, gate, sym):
         state, cmd = f32(state_comps_np(d)), f32(d["cmd"].T)
         plain = fc.commander_pre_plain(consts, state, carry, cmd,
                                        contact_gate=gate,
-                                       raibert_cmd_symmetric=sym)
-        slab = torch.empty((sum(kernels._CMD_OUT_ROWS), B))
-        outs = torch.split(slab, kernels._CMD_OUT_ROWS)
+                                       raibert_cmd_symmetric=sym,
+                                       mpc_horizon=nh, mpc_dt=0.03)
+        rows = kernels._CMD_OUT_ROWS + ((fc.mpc_block_size(nh),) if nh else ())
+        outs = torch.split(torch.empty((sum(rows), B)), rows)
+        ptrs = [o.data_ptr() for o in outs] + [None] * (10 - len(outs))
         host.host_commander_pre(
-            state.data_ptr(), carry.data_ptr(), cmd.data_ptr(),
-            *(o.data_ptr() for o in outs), B, ctypes.byref(params))
-        r, b, st, mu, fmin, fmax, tau, new, q_ref = outs
-        pr, pb, pst, pmu, pfmin, pfmax, ptau, pnew, pq_ref = plain
+            state.data_ptr(), carry.data_ptr(), cmd.data_ptr(), *ptrs, B,
+            ctypes.byref(params))
+        r, b, st, mu, fmin, fmax, tau, new, q_ref = outs[:9]
+        pr, pb, pst, pmu, pfmin, pfmax, ptau, pnew, pq_ref = plain[:9]
         bad = (st != pst).any(0) | (
             new[DISCRETE_CARRY] != pnew[DISCRETE_CARRY]).any(0)
         assert int(bad.sum()) <= 2, torch.nonzero(bad).flatten().tolist()
@@ -116,6 +124,13 @@ def test_commander_source_matches_plain_version(host, gate, sym):
                 msg=lambda m: f"tick {tick} {name}: {m}")
         assert torch.equal(mu, pmu) and torch.equal(fmin, pfmin)
         assert torch.equal(fmax, pfmax)
+        if nh:
+            # The MPC block: schedule exactly, the rest to float32 round-off.
+            sched = slice(25, 25 + 4 * nh)
+            assert torch.equal(outs[9][sched][:, good],
+                               plain[9][sched][:, good])
+            torch.testing.assert_close(outs[9][:, good], plain[9][:, good],
+                                       rtol=1e-5, atol=2e-5)
         crossed += int(((pnew[2:6] < 0.5) & (carry[2:6] > 0.5)).sum())
         carry = pnew.contiguous()
     assert crossed > 0
@@ -189,3 +204,87 @@ def test_substep_source_matches_plain_version(host, model_fn, contact,
                                want[POSE_ROWS][:, keep], rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(got[VEL_ROWS][:, keep],
                                want[VEL_ROWS][:, keep], rtol=2e-3, atol=2e-2)
+
+
+def _mpc_blocks(B, N, mdt):
+    """(25 + 17N, B) float32 MPC blocks of the JAX MPC tests' problem family
+    (tests/torch_port_helpers.mpc_problem_np), linearized at xi0's yaw."""
+    d = mpc_problem_np(40, B, N, mdt, CFG)
+    d["xi0"][:, 2] = d["yaw"]
+    flat = np.concatenate(
+        [d["xi0"], (d["feet_world"] - d["x_com"][:, None]).reshape(B, 12),
+         d["stance_schedule"].reshape(B, -1).astype(np.float64),
+         d["xi_ref"].reshape(B, -1)], -1)
+    return f32(flat.T)
+
+
+@pytest.mark.parametrize("N,mdt,iterations", [(8, 0.03, 25), (24, 0.02, 40)],
+                         ids=["N8", "N24-no-best"])
+def test_mpc_source_matches_plain_version(host, N, mdt, iterations):
+    """B = 256 lanes, cold, then warm from the cold solve with a
+    third of the schedule bits flipped (N = 8). Held like the chip smoke
+    test holds the kernel: objective of the horizon forces (float64, on each
+    lane's own condensed problem) median < 1e-5 and p99 < 5e-4 relative on
+    the lanes both versions certify (an uncertified lane's iterate is
+    where rounding left it), converged flags agreeing on >= 0.99 of the
+    lanes, swing forces exactly 0, the warm output's s and z finite and >
+    0."""
+    from quadruped_control_tpu_torch.mpc import fused_riccati as fr
+    from quadruped_control_tpu_torch.mpc import horizon as th
+    from quadruped_control_tpu_torch.sim.fused_tick import (
+        init_mpc_warm_packed)
+
+    B = 256
+    bal = CFG.balance
+    st = fr.MpcSettings(n_steps=N, dt=mdt, iterations=iterations,
+                        mass=bal.mass, inertia_diag=bal.inertia_diag,
+                        mu=bal.mu, fz_min=bal.fz_min, fz_max=bal.fz_max)
+    block = _mpc_blocks(B, N, mdt)
+    blk = block.double().t()
+    xi0, r = blk[:, :13], blk[:, 13:25].reshape(B, 4, 3)
+    sched = blk[:, 25:25 + 4 * N].reshape(B, N, 4) > 0.5
+    ref = blk[:, 25 + 4 * N:].reshape(B, N, 13)
+    qp = th.build_mpc_qp(xi0, ref, xi0[:, 2], r, torch.zeros(B, 3), sched,
+                         N, mdt, CFG)
+
+    def objective(F):
+        x = F.t().double()
+        return 0.5 * torch.einsum("bi,bij,bj->b", x, qp.H, x) + (
+            qp.c * x).sum(-1)
+
+    def run_host(warm):
+        F = torch.empty((12 * N, B))
+        diag = torch.empty((6, B))
+        wout = torch.empty((60 * N, B))
+        scratch = torch.empty((kernels.MPC_WORDS_PER_STEP * N, B))
+        wp = [None] * 3 if warm is None else [a.data_ptr() for a in warm]
+        host.host_mpc_riccati(block.data_ptr(), None, None, *wp, F.data_ptr(),
+                              diag.data_ptr(), wout.data_ptr(),
+                              scratch.data_ptr(), B, ctypes.byref(st.params()))
+        return F, diag, wout
+
+    cold = init_mpc_warm_packed(B, horizon=N, device="cpu")
+    flipped = block[25:25 + 4 * N].clone()
+    flipped[:, ::3] = 1.0 - flipped[:, ::3]
+    warm = None
+    for name, w in (("cold", cold), ("warm", None)):
+        if name == "warm":
+            if N != 8:
+                break
+            w = (wout[48 * N:], wout[:48 * N], flipped)
+        F, diag, wout = run_host(w)
+        Fp, dp, szp = fr.packed_plain(block, w, st)
+        o, op = objective(F), objective(Fp)
+        both = ((diag[0] > 0.5) & (dp[0] > 0.5)).numpy()
+        assert both.mean() > 0.5, (name, both.mean())
+        rel = ((o - op).abs() / (1.0 + op.abs())).numpy()[both]
+        agree = (diag[0] == dp[0]).float().mean().item()
+        assert np.median(rel) < 1e-5 and np.percentile(rel, 99) < 5e-4, (
+            name, np.median(rel), np.percentile(rel, 99))
+        assert agree >= 0.99, (name, agree)
+        swing = (block[25:25 + 4 * N].repeat_interleave(3, 0) < 0.5)
+        assert bool((F[swing] == 0).all())
+        assert bool(torch.isfinite(wout).all())
+        assert bool((wout[:48 * N] > 0).all())
+        warm = w
+    assert warm is not None

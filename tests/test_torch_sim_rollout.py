@@ -103,9 +103,15 @@ def test_stepper_in_the_loop_and_checks():
                                 stepper=stepper, cmd_schedule=True)
     with pytest.raises(ValueError, match="cmd_schedule"):
         tsim.rollout_whole_body(tp, tc, sched, 2, TCFG, TM, **KW)
-    with pytest.raises(NotImplementedError, match="third slice"):
+    # controller="mpc" runs; an unknown MPC backend raises.
+    mpc = tsim.rollout_whole_body(tp, tc, sched[0], 1, TCFG, TM,
+                                  n_substeps=N_SUB, controller="mpc",
+                                  mpc_horizon=3, mpc_iterations=6,
+                                  mpc_backend="riccati-pallas")
+    assert bool(torch.isfinite(mpc.plant.x).all())
+    with pytest.raises(ValueError, match="mpc_backend"):
         tsim.rollout_whole_body(tp, tc, sched[0], 1, TCFG, TM,
-                                controller="mpc")
+                                controller="mpc", mpc_backend="osqp")
 
 
 def test_sim_package_reexports():

@@ -185,3 +185,73 @@ def assert_close(got, want, tol, name="", rel_to_max=True):
     scale = 1.0 + (np.abs(want).max() if want.size else 0.0)
     np.testing.assert_allclose(got, want, rtol=0.0, atol=tol * scale,
                                err_msg=name)
+
+
+# ---------------------------------------------------------------------------
+# MPC horizon problems (third slice of the port), float64 NumPy arrays: the
+# distribution of tests/test_mpc_riccati.py (standing feet, 0.2 m/s forward
+# reference, a trot schedule), optionally with per-instance robot constants.
+# ---------------------------------------------------------------------------
+
+TROT_SCHEDULE = np.array([[1, 0, 0, 1], [0, 1, 1, 0]], bool)
+
+
+def mpc_problem_np(seed, batch, horizon, dt, cfg, randomize=False):
+    """dict(xi0 (B, 13), xi_ref (B, N, 13), yaw (B,), feet_world (B, 4, 3),
+    x_com (B, 3), stance_schedule (B, N, 4) bool[, mass, inertia_diag, mu])."""
+    from quadruped_control_tpu_torch.utils.scenarios import standing_feet
+
+    rng = np.random.default_rng(seed)
+    B, N = batch, horizon
+    xi0 = np.zeros((B, 13))
+    xi0[:, 5] = rng.uniform(0.20, 0.30, B)
+    xi0[:, 9] = 0.2 * rng.standard_normal(B)
+    xi0[:, 12] = 1.0
+    t = np.arange(1, N + 1) * dt
+    ref = np.zeros((B, N, 13))
+    ref[..., 3] = xi0[:, 3:4] + 0.2 * t
+    ref[..., 5] = 0.26
+    ref[..., 9] = 0.2
+    ref[..., 12] = 1.0
+    feet = (t2n(standing_feet(cfg, dtype=torch.float64, device="cpu"))
+            + np.array([0.0, 0.0, 0.26]))
+    d = dict(xi0=xi0, xi_ref=ref, yaw=0.1 * rng.standard_normal(B),
+             feet_world=np.broadcast_to(feet, (B, 4, 3)).copy()
+             + 0.005 * rng.standard_normal((B, 4, 3)),
+             x_com=np.tile([0.0, 0.0, 0.26], (B, 1)),
+             stance_schedule=np.tile(
+                 TROT_SCHEDULE[np.arange(N) % 2][None], (B, 1, 1)))
+    if randomize:
+        d["mass"] = cfg.balance.mass * rng.uniform(0.8, 1.2, B)
+        d["inertia_diag"] = (np.asarray(cfg.balance.inertia_diag)
+                             * rng.uniform(0.8, 1.2, (B, 3)))
+        d["mu"] = rng.uniform(0.5, 1.0, B)
+    return d
+
+
+MPC_ARGS = ("xi0", "xi_ref", "yaw", "feet_world", "x_com", "stance_schedule")
+
+
+def mpc_args_jax(d, dtype=jnp.float64):
+    return tuple(jnp.asarray(d[k]) if d[k].dtype == np.bool_
+                 else jnp.asarray(d[k], dtype) for k in MPC_ARGS)
+
+
+def mpc_args_torch(d, dtype=torch.float64):
+    return tuple(torch.as_tensor(d[k]) if d[k].dtype == np.bool_
+                 else torch.as_tensor(d[k], dtype=dtype) for k in MPC_ARGS)
+
+
+def mpc_objective_np(d, F, horizon, dt, cfg_jax, lanes):
+    """The condensed horizon objective 1/2 F^T H F + c^T F of each listed
+    lane, float64, through the JAX package's build_mpc_qp."""
+    from quadruped_control_tpu.mpc.horizon import build_mpc_qp
+
+    sel = {k: d[k][lanes] for k in d}
+    kw = {k: jnp.asarray(sel[k], jnp.float64)
+          for k in ("mass", "inertia_diag", "mu") if k in sel}
+    qp = build_mpc_qp(*mpc_args_jax(sel), horizon, dt, cfg_jax, **kw)
+    H, c = np.asarray(qp.H), np.asarray(qp.c)
+    x = np.asarray(F, np.float64)[lanes].reshape(len(lanes), -1)
+    return 0.5 * np.einsum("bi,bij,bj->b", x, H, x) + np.einsum("bi,bi->b",
+                                                                 c, x)

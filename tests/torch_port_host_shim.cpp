@@ -1,20 +1,21 @@
-// Host build of the per-instance bodies of the commander-pre and substep
-// CUDA kernels (quadruped_control_tpu_torch/csrc/qct_commander.cuh and
-// qct_substep.cuh), looped over the batch by a plain C++ compiler
-// (-ffp-contract=off), so that the kernels' arithmetic can be held against
-// the plain PyTorch versions on a machine without a CUDA compiler
+// Host build of the per-instance bodies of the commander-pre, substep and
+// MPC CUDA kernels (quadruped_control_tpu_torch/csrc/qct_commander.cuh,
+// qct_substep.cuh and qct_mpc.cuh), looped over the batch by a plain C++
+// compiler (-ffp-contract=off), so that the kernels' arithmetic can be held
+// against the plain PyTorch versions on a machine without a CUDA compiler
 // (tests/test_torch_kernel_sources_host.py).
 #include "qct_commander.cuh"
+#include "qct_mpc.cuh"
 #include "qct_substep.cuh"
 
 extern "C" void host_commander_pre(const float* state, const float* carry,
                                    const float* cmd, float* r, float* b,
                                    float* st, float* mu, float* fzmin,
                                    float* fzmax, float* tau_swing,
-                                   float* carry_out, float* q_ref, int B,
-                                   const QctCmdParams* params) {
-  QctCmdIO io = {state, carry, cmd,       r,         b,    st,
-                 mu,    fzmin, fzmax, tau_swing, carry_out, q_ref};
+                                   float* carry_out, float* q_ref, float* mpc,
+                                   int B, const QctCmdParams* params) {
+  QctCmdIO io = {state, carry,     cmd,   r,  b,  st,  mu,
+                 fzmin, fzmax, tau_swing, carry_out, q_ref, mpc};
   for (int i = 0; i < B; ++i) commander_instance(io, B, i, *params);
 }
 
@@ -26,4 +27,15 @@ extern "C" void host_substep(const float* state, const float* a,
   QctSubIO io = {state, a, tau_sw, st, factor, out};
   for (int i = 0; i < B; ++i)
     substep_instance(io, B, i, n_substeps, h, *params);
+}
+
+extern "C" void host_mpc_riccati(const float* block, const float* yaw,
+                                 const float* phys, const float* warm_F,
+                                 const float* warm_sz,
+                                 const float* warm_sched, float* F,
+                                 float* diag, float* warm_out, float* scratch,
+                                 int B, const QctMpcParams* params) {
+  QctMpcIO io = {block, yaw,  phys, warm_F,   warm_sz,
+                 warm_sched, F, diag, warm_out, scratch};
+  for (int i = 0; i < B; ++i) mpc_instance(io, B, i, *params);
 }
