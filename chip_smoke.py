@@ -37,6 +37,16 @@ uses (cold-15, warm-8 with flipped schedule bits, N = 24 without
 best-iterate tracking, the unpacked entry at a ragged batch, poisoned
 lanes); ms per tick and per launch beside the bound.
 
+Then the fourth main path, the dense QP solve (solver/fused_ipm.py: the
+dense barrier K3a, then the certified polish K3b) at B = 32768: both kernels
+against their plain versions (20 and 3 iterations, the polish on the
+barrier's point, a ragged batch with two poisoned lanes), the split pipeline
+(grf_scenarios -> assemble_qp_batch -> solve_qp_ipm_fused) with its
+converged fraction, float64 oracle parity and exactly one launch of each
+kernel per solve, and solve_balance_qp_fused with the bench schedule and
+prox_backend="xla" (3 K1 launches + 6 x (K3a + K3b) per solve), with times
+beside the bounds.
+
 Any failed phase ends the run with a non-zero exit code; nothing is caught and
 carried on. Without a CUDA device it exits with code 2 and prints no result.
 
@@ -80,10 +90,13 @@ from quadruped_control_tpu_torch.sim import (  # noqa: E402
 from quadruped_control_tpu_torch.sim import fused_substep as fsub  # noqa: E402
 from quadruped_control_tpu_torch.sim import fused_tick as ftick  # noqa: E402
 from quadruped_control_tpu_torch.solver import fused as pf  # noqa: E402
+from quadruped_control_tpu_torch.solver import fused_ipm as fi  # noqa: E402
+from quadruped_control_tpu_torch.solver.ipm import equilibrate  # noqa: E402
 from quadruped_control_tpu_torch.solver.reference import (  # noqa: E402
     solve_qp_batch_oracle,
 )
 from quadruped_control_tpu_torch.utils.scenarios import (  # noqa: E402
+    assemble_qp_batch,
     commander_carry_walk,
     grf_scenarios,
     walk_carry_comps,
@@ -113,7 +126,11 @@ PEAK_BYTES = 3.35e12
 MAIN_SCHEDULE = dict(
     iterations=20, polish=True, polish_sweeps=2, two_phase=True, split=True,
     tail_iterations=24, tail_sweeps=16, prox_tail=True,
-    prox_backend="kernel", prox_steps=6, prox_iterations=24, prox_sweeps=6)
+    prox_backend="kernel", prox_steps=6, prox_iterations=24, prox_sweeps=6,
+    rows=16)
+# The dense QP solve of the split pipeline (scripts/fused_bench.py:48-54 of
+# the JAX package): grf_scenarios -> assemble_qp_batch -> the dense solve.
+DENSE_ITERS = 20
 
 
 def log(msg):
@@ -433,16 +450,20 @@ def phase_main_shapes(cfg, gen):
     k2 = sched(iterations=0, polish_sweeps=2)
     pol = pf.solve_grf_qp_fused_packed(*inp, *bar[:3], **base, **k2)
     modes.append(("polish", inp, bar[:3], k2))
-    # 3. the two-phase tail: B/8 worst instances, long schedule.
-    idx = pf._worst_first(pol[3][1] > 0.5, B_MAIN // 8)
+    # 3. the two-phase tail: the JAX package's slice (B/8 here), long
+    #    schedule.
+    idx = pf._worst_first(pol[3][1] > 0.5,
+                          pf.two_phase_tail_size(B_MAIN, 16, 8))
     inp_t = subset(inp, idx)
     k3 = sched(iterations=24, polish_sweeps=16, polish_refine=4)
     tail = pf.solve_grf_qp_fused_packed(*inp_t, **base, **k3)
     modes.append(("tail", inp_t, (), k3))
-    # 4. the prox stage: B/64 worst instances after the merge.
+    # 4. the prox stage: the JAX package's slice (1024 instances at this B
+    #    and rows 16) after the merge.
     conv = pol[3][1] > 0.5
     conv[idx] = conv[idx] | (tail[3][1] > 0.5)
-    idx_p = pf._worst_first(conv, B_MAIN // 64)
+    idx_p = pf._worst_first(conv, min(B_MAIN, pf.prox_slice_size(
+        B_MAIN, 16, True, 8, 64, "kernel")))
     inp_p = subset(inp, idx_p)
     warm_p = subset(pol[:3], idx_p)
     k4 = sched(iterations=0, polish_sweeps=6, prox_steps=6,
@@ -557,6 +578,8 @@ def phase_main_path(cfg, gen):
           f"{counts['qct_fused_solve']} in {REPS} solves")
     check(counts["qct_assemble"] >= 1,
           f"K2 launched {counts['qct_assemble']} time(s)")
+    check(counts["qct_dense_barrier"] == counts["qct_dense_polish"] == 0,
+          "the kernel prox backend launches no dense IPM kernel")
 
     n = 64
     _, obj_star, _ = solve_qp_batch_oracle(
@@ -1687,6 +1710,306 @@ def phase_mpc_times(cfg, mpc):
     return out
 
 
+# ---------------------------------------------------------------------------
+# The dense QP solve: K3a (barrier) -> K3b (polish)
+# ---------------------------------------------------------------------------
+
+def dense_problem(gen, B, cfg):
+    """grf_scenarios -> assemble_qp_batch -> equilibrate -> the dense
+    kernels' (k, B) inputs. Returns (qp, stance, (Q, c, G, h) equilibrated
+    (k, B), Dv)."""
+    s = grf_scenarios(gen, B, cfg, device=DEV)
+    qp = assemble_qp_batch(s, cfg)
+    Qs, cs, Gs, hs, Dv, _, _ = equilibrate(qp.Q, qp.c, qp.G, qp.h)
+    prob = (pf._soa(Qs, 144, B), pf._soa(cs, 12, B), pf._soa(Gs, 288, B),
+            pf._soa(hs, 24, B))
+    return qp, s.stance, prob, Dv
+
+
+def dense_objective64(Q, c, Dv, x_eq):
+    """Objective of the ORIGINAL problem (Q, c) at the mapped-back
+    equilibrated (12, B) iterate, float64."""
+    x = x_eq.t().double() * Dv.double()
+    return (0.5 * torch.einsum("bi,bij,bj->b", x, Q.double(), x)
+            + (c.double() * x).sum(-1))
+
+
+# Operation counts of K3a and K3b (one per add, subtract, multiply, divide,
+# square root, compare/select), counted from the loops of
+# csrc/qct_dense_ipm.cuh and the helpers of qct_common.cuh it calls.
+def ops_dense_barrier_iteration():
+    chol = sum(2 * j + 3 + (11 - j) * (2 * j + 1) for j in range(12))
+    kkt = 2 * _CHOL_SOLVE + 12 * 24 + 12 + 12
+    newton = 24 * 3 + 12 * 49 + kkt + 24 * 23 + 24 * 2 + 24 * 4
+    return (24 * 25 + 12 * 72 + 24 * 2        # residuals, d
+            + 78 * 24 * 3 + 24                # M = Q + G^T D G, shift
+            + chol + 48                       # Cholesky, mu
+            + 24 + 2 * newton + 4 * (24 * 4 + 2)  # rc, directions, steps
+            + 24 * 5 + 6 + 24 * 4             # mu_aff, sigma, corrector rc
+            + 72 + 5 + 72 + 60 * 3)           # merit, guards, update
+
+
+def ops_dense_polish_sweep():
+    ldl = sum(3 * j + 2 + (35 - j) * (3 * j + 1) for j in range(36))
+    solve = 4 * 630 + 36
+    refine = 12 * 96 + 24 * 39 + 36
+    ff = 12 * (37 * 25 + 2) + 12 * 2          # 37 compensated terms a row
+    return (24 * 12 + 24 * 4 + ldl + 5 * solve + 4 * refine + ff
+            + 24 * 24 + 24 * 3 + 36 + 24 * 6 + 24 * 6)
+
+
+def dense_polish_sweeps_run(prob, bar):
+    """Sweeps K3b runs over the batch on these inputs: a lane leaves the
+    loop after its first certified sweep. Counted with the plain version,
+    whose certificate after k sweeps is the kernel's (bitwise equal)."""
+    B = bar[0].shape[1]
+    total = B
+    for k in range(1, 8):
+        cert = fi._dense_polish_plain(*prob, *bar, sweeps=k)[3]
+        total += int((cert < 0.5).sum().item())
+    return total
+
+
+def hold_dense_to_plain(name, kern, plain, Q, c, Dv, cert=False):
+    """Fail unless a dense kernel's (x, s, z[, cert]) agree with its plain
+    version's on the same inputs: objective gap (float64, original units)
+    median < 1e-6, p95 < 1e-4 over the finite lanes, certificate agreement
+    >= 0.99. Returns (max |dx|, bitwise)."""
+    ok_ = dense_objective64(Q, c, Dv, kern[0])
+    op_ = dense_objective64(Q, c, Dv, plain[0])
+    both = torch.isfinite(ok_) & torch.isfinite(op_)
+    rel = (torch.abs(ok_ - op_) / (1.0 + torch.abs(op_)))[both].cpu().numpy()
+    bitwise = all(torch.equal(a, b) for a, b in zip(kern, plain))
+    max_abs = (kern[0] - plain[0])[:, both].abs().max().item()
+    agree = 1.0
+    if cert:
+        agree = (kern[3] == plain[3]).float().mean().item()
+    log(f"  {name}: objective gap median {np.median(rel):.2e} p95 "
+        f"{np.percentile(rel, 95):.2e}; max|dx| {max_abs:.2e}; cert "
+        f"agreement {agree:.4f}; bitwise {bitwise}")
+    if not (both.float().mean().item() > 0.99 and np.median(rel) < 1e-6
+            and np.percentile(rel, 95) < 1e-4 and agree >= 0.99):
+        fail(f"{name} disagrees with its plain version")
+    return max_abs, bitwise
+
+
+def phase_dense_vs_plain(cfg, gen):
+    log(f"== phase 13: K3a (dense barrier) and K3b (dense polish) vs their "
+        f"plain versions on the card, B = {B_MAIN}")
+    qp, _, prob, Dv = dense_problem(gen, B_MAIN, cfg)
+    worst = {"qct_dense_barrier": 0.0, "qct_dense_polish": 0.0}
+    bitwise = {}
+    for it in (DENSE_ITERS, 3):
+        k = kernels.dense_barrier(*prob, iterations=it, tau=0.995)
+        p = fi._dense_barrier_plain(*prob, iterations=it, tau=0.995)
+        torch.cuda.synchronize()
+        err, bw = hold_dense_to_plain(f"K3a {it} iterations", k, p, qp.Q,
+                                      qp.c, Dv)
+        worst["qct_dense_barrier"] = max(worst["qct_dense_barrier"], err)
+        bitwise[f"K3a_{it}"] = bw
+        if it == DENSE_ITERS:
+            bar = k
+    kp = kernels.dense_polish(*prob, *bar)
+    pp = fi._dense_polish_plain(*prob, *bar)
+    torch.cuda.synchronize()
+    err, bitwise["K3b"] = hold_dense_to_plain("K3b on K3a's point", kp, pp,
+                                              qp.Q, qp.c, Dv, cert=True)
+    worst["qct_dense_polish"] = err
+    log(f"  K3b certified {kp[3].mean().item():.5f} of the lanes")
+
+    # A ragged batch and two poisoned lanes (NaN in Q, inf in h).
+    Br = 1024 + 37
+    sub = [a[:, :Br].clone() for a in prob]
+    sub[0][7, 5] = float("nan")
+    sub[3][3, 1000] = float("inf")
+    kb = kernels.dense_barrier(*sub, iterations=DENSE_ITERS, tau=0.995)
+    pb = fi._dense_barrier_plain(*sub, iterations=DENSE_ITERS, tau=0.995)
+    kq = kernels.dense_polish(*sub, *kb)
+    pq = fi._dense_polish_plain(*sub, *pb)
+    torch.cuda.synchronize()
+    keep = torch.ones(Br, dtype=torch.bool, device=DEV)
+    keep[[5, 1000]] = False
+    Qk, ck, Dk = qp.Q[:Br][keep], qp.c[:Br][keep], Dv[:Br][keep]
+    hold_dense_to_plain("K3a ragged B = 1061, two poisoned lanes",
+                        [a[..., keep] for a in kb], [a[..., keep] for a in pb],
+                        Qk, ck, Dk)
+    hold_dense_to_plain("K3b ragged B = 1061, two poisoned lanes",
+                        [a[..., keep] for a in kq], [a[..., keep] for a in pq],
+                        Qk, ck, Dk, cert=True)
+    check(all(torch.equal(a[..., keep], b[..., :Br][..., keep])
+              for a, b in zip(kb + kq, bar + kp)),
+          "ragged launch: every unpoisoned lane is bitwise its lane of the "
+          "full batch's launches")
+    check(float(kq[3][5]) == 0.0 and float(kq[3][1000]) == 0.0,
+          "the poisoned lanes are not certified")
+    return dict(worst=worst, bitwise=bitwise)
+
+
+def phase_split_pipeline(cfg, gen):
+    log(f"== phase 14: the split pipeline, solve_qp_ipm_fused(iterations="
+        f"{DENSE_ITERS}, polish=True), B = {B_MAIN}, {REPS} solves on fresh "
+        f"inputs")
+    probs = [dense_problem(gen, B_MAIN, cfg) for _ in range(REPS + 1)]
+
+    def solve(qp):
+        return fi.solve_qp_ipm_fused(qp.Q, qp.c, qp.G, qp.h,
+                                     iterations=DENSE_ITERS, polish=True)
+
+    solve(probs[-1][0])                                   # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()                         # counts set to 0
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    sols = [solve(p[0]) for p in probs[:REPS]]
+    t1.record()
+    torch.cuda.synchronize()
+    counts = dict(kernels.launch_counts)                  # counts read
+    ms = t0.elapsed_time(t1) / REPS
+    conv = float(np.mean([s_.converged.float().mean().item() for s_ in sols]))
+    log(f"  {ms:.3f} ms/solve, {B_MAIN / ms * 1e3:,.0f} QPs/s, converged "
+        f"fraction {conv:.5f}")
+    log(f"  launch counts in the run: {counts}")
+    for s_ in sols:
+        for nm in ("x", "z", "s", "gap", "primal_residual", "dual_residual"):
+            if not bool(torch.isfinite(getattr(s_, nm)).all()):
+                fail(f"split pipeline: non-finite values in {nm}")
+    check(conv >= 0.98, f"converged fraction {conv:.5f} >= 0.98")
+    check(counts["qct_dense_barrier"] == REPS
+          and counts["qct_dense_polish"] == REPS
+          and counts["qct_fused_solve"] == 0,
+          f"exactly one K3a and one K3b launch per solve ({REPS} solves)")
+
+    qp0, stance0 = probs[0][0], probs[0][1]
+    n = 64
+    _, obj_star, _ = solve_qp_batch_oracle(
+        *(a[:n].double().cpu().numpy() for a in (qp0.Q, qp0.c, qp0.G,
+                                                 qp0.h)),
+        stance0[:n].cpu().numpy(), cfg.balance.fz_min, cfg.balance.fz_max)
+    xd = sols[0].x[:n].double()
+    obj = (0.5 * torch.einsum("bi,bij,bj->b", xd, qp0.Q[:n].double(), xd)
+           + (qp0.c[:n].double() * xd).sum(-1)).cpu().numpy()
+    rel = np.abs(obj - obj_star) / (1.0 + np.abs(obj_star))
+    log(f"  oracle parity (n={n}): objective rel gap median "
+        f"{np.median(rel):.2e} p95 {np.percentile(rel, 95):.2e} max "
+        f"{rel.max():.2e}")
+    check(np.median(rel) < 1e-7 and np.percentile(rel, 95) < 1e-6,
+          "split pipeline meets the float64 oracle (median < 1e-7, p95 < "
+          "1e-6: tests/test_pallas.py's bars)")
+
+    # Per launch, fresh inputs each repetition.
+    probs_k = [p[2] for p in probs]
+    bars = [kernels.dense_barrier(*pr, iterations=DENSE_ITERS, tau=0.995)
+            for pr in probs_k]
+
+    def per_launch(fn):
+        fn(0)
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for r in range(REPS):
+            fn(r)
+        e1.record()
+        torch.cuda.synchronize()
+        return e0.elapsed_time(e1) / REPS
+
+    ms_a = per_launch(lambda r: kernels.dense_barrier(
+        *probs_k[r], iterations=DENSE_ITERS, tau=0.995))
+    ms_b = per_launch(lambda r: kernels.dense_polish(*probs_k[r], *bars[r]))
+    t0h = time.time()
+    fi._dense_barrier_plain(*probs_k[0], iterations=DENSE_ITERS, tau=0.995)
+    torch.cuda.synchronize()
+    plain_a = (time.time() - t0h) * 1e3
+    t0h = time.time()
+    fi._dense_polish_plain(*probs_k[0], *bars[0])
+    torch.cuda.synchronize()
+    plain_b = (time.time() - t0h) * 1e3
+    sweeps = dense_polish_sweeps_run(probs_k[0], bars[0])
+    ops_a = B_MAIN * DENSE_ITERS * ops_dense_barrier_iteration()
+    ops_b = sweeps * ops_dense_polish_sweep()
+    b_a, by_a = bound_ms(4 * B_MAIN * (468 + 60), ops_a)
+    b_b, by_b = bound_ms(4 * B_MAIN * (468 + 60 + 61), ops_b)
+    log(f"  K3a: {ms_a:.4f} ms per launch (plain {plain_a:.0f} ms, bound "
+        f"{b_a:.5f} ms, {by_a}, {ops_a // B_MAIN} operations per instance)")
+    log(f"  K3b: {ms_b:.4f} ms per launch (plain {plain_b:.0f} ms, bound "
+        f"{b_b:.5f} ms, {by_b}; {sweeps / B_MAIN:.3f} sweeps per instance "
+        f"run); the two launches sum to {ms_a + ms_b:.4f} of the "
+        f"{ms:.4f} ms solve")
+    return dict(
+        ms_per_solve=ms, qps=B_MAIN / ms * 1e3, converged=conv,
+        launches=counts, oracle_median=float(np.median(rel)),
+        k3a=dict(ms=ms_a, plain_ms=plain_a, bound_ms=b_a, bound_by=by_a,
+                 operations=ops_a),
+        k3b=dict(ms=ms_b, plain_ms=plain_b, bound_ms=b_b, bound_by=by_b,
+                 operations=ops_b, mean_sweeps_run=sweeps / B_MAIN))
+
+
+def phase_prox_xla(cfg, gen, main_res):
+    log(f"== phase 15: solve_balance_qp_fused with the bench schedule and "
+        f"prox_backend=\"xla\", B = {B_MAIN}, {REPS} solves on fresh inputs")
+    bal = cfg.balance
+    sched = dict(MAIN_SCHEDULE, prox_backend="xla")
+    Bt = pf.prox_slice_size(B_MAIN, sched["rows"], True, 8, 64, "xla")
+    check(Bt == 1024, f"the JAX package's xla prox slice at this B is {Bt} "
+          f"instances (a multiple of 1024: the dense kernels' branch)")
+
+    def solve(s):
+        return pf.solve_balance_qp_fused(
+            s.R, s.R_d, s.x, s.xdot, s.w, s.x_d, s.xdot_d, s.w_d, s.feet,
+            s.stance, bal, **sched)
+
+    solve(grf_scenarios(gen, B_MAIN, cfg, device=DEV))   # warm-up
+    scen = [grf_scenarios(gen, B_MAIN, cfg, device=DEV) for _ in range(REPS)]
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()                          # counts set to 0
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    sols = [solve(s) for s in scen]
+    t1.record()
+    torch.cuda.synchronize()
+    counts = dict(kernels.launch_counts)                   # counts read
+    ms = t0.elapsed_time(t1) / REPS
+    conv = float(np.mean([s_.converged.float().mean().item() for s_ in sols]))
+    log(f"  {ms:.3f} ms/solve-batch, {B_MAIN / ms * 1e3:,.0f} QPs/s, "
+        f"converged fraction {conv:.5f} (the kernel backend, phase 4b: "
+        f"{main_res['ms_per_solve']:.3f} ms, {main_res['converged']:.5f})")
+    log(f"  launch counts in the run: {counts}")
+    for s_ in sols:
+        for nm in ("x", "z", "s", "gap", "primal_residual", "dual_residual"):
+            if not bool(torch.isfinite(getattr(s_, nm)).all()):
+                fail(f"xla prox path: non-finite values in {nm}")
+    check(conv >= 0.99, f"converged fraction {conv:.5f} >= 0.99")
+    steps = sched["prox_steps"]
+    check(counts["qct_fused_solve"] == 3 * REPS
+          and counts["qct_dense_barrier"] == steps * REPS
+          and counts["qct_dense_polish"] == steps * REPS,
+          f"per solve: phase 4b's 4 K1 launches minus the prox launch, plus "
+          f"{steps} x (K3a + K3b) on the {Bt}-instance slice")
+
+    s0, sol0 = scen[0], sols[0]
+    Q, c, G, h = pf.assemble_qp_fused_debug(
+        *raw_inputs(s0, bal), s_diag=tuple(bal.s_diag),
+        w_diag=float(bal.w_diag))
+    n = 64
+    _, obj_star, _ = solve_qp_batch_oracle(
+        Q[:n].double().cpu().numpy(), c[:n].double().cpu().numpy(),
+        G[:n].double().cpu().numpy(), h[:n].double().cpu().numpy(),
+        s0.stance[:n].cpu().numpy(), bal.fz_min, bal.fz_max)
+    xd = sol0.x[:n].double()
+    obj = (0.5 * torch.einsum("bi,bij,bj->b", xd, Q[:n].double(), xd)
+           + (c[:n].double() * xd).sum(-1)).cpu().numpy()
+    rel = np.abs(obj - obj_star) / (1.0 + np.abs(obj_star))
+    log(f"  oracle parity (n={n}): objective rel gap median "
+        f"{np.median(rel):.2e} max {rel.max():.2e}")
+    check(np.median(rel) < 1e-6 and rel.max() < 1e-4,
+          "xla prox path meets the float64 oracle's objective (median < "
+          "1e-6)")
+    return dict(ms_per_solve=ms, qps=B_MAIN / ms * 1e3, converged=conv,
+                launches=counts, slice=Bt)
+
+
 def main():
     t_start = time.time()
     smi = phase_device()
@@ -1712,6 +2035,11 @@ def main():
     k6 = phase_mpc_kernel_vs_plain(mpc_cfg, mpc_res)
     mpc_times = phase_mpc_times(mpc_cfg, mpc_res)
     mpc_launches = mpc_res["launches"]
+    gen_d = torch.Generator(device=DEV)
+    gen_d.manual_seed(SEED + 4)
+    dense_chk = phase_dense_vs_plain(cfg, gen_d)
+    split = phase_split_pipeline(cfg, gen_d)
+    xla = phase_prox_xla(cfg, gen_d, main_res)
 
     k1 = {
         "name": "qct_fused_solve", "route": "cuda",
@@ -1780,7 +2108,26 @@ def main():
                  f"1 launch per MPC tick (modes: {list(k6['modes'])})",
         **mpc_times["k6"], "modes": k6["modes"],
     }
-    for entry in (k1, k4_entry, k5_entry, k6_entry):
+    dense_entries = []
+    for key, nm, line, k3 in (
+            ("qct_dense_barrier", "K3a", 44, split["k3a"]),
+            ("qct_dense_polish", "K3b", 301, split["k3b"])):
+        dense_entries.append({
+            "name": key, "route": "cuda",
+            "source": "quadruped_control_tpu_torch/csrc/qct_dense_ipm.cu",
+            "replaces": f"quadruped_control_tpu/solver/pallas_ipm.py:{line}",
+            "launches": split["launches"][key] + xla["launches"][key],
+            "launches_by_path": {"split_pipeline": split["launches"][key],
+                                 "prox_xla": xla["launches"][key]},
+            "max_abs_err": dense_chk["worst"][key],
+            "ms": k3["ms"], "plain_ms": k3["plain_ms"],
+            "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"],
+            "library_ms": None,
+            "shape": f"B={B_MAIN}, {DENSE_ITERS} iterations, 1 launch per "
+                     f"dense solve; prox xla: {xla['slice']} instances, 6 "
+                     f"per solve",
+            "bitwise": dense_chk["bitwise"]})
+    for entry in (k1, k4_entry, k5_entry, k6_entry, *dense_entries):
         if entry["launches"] <= 0:
             fail(f"{entry['name']} was launched no time on its main path")
     tick_summary = {k: tick_res[k] for k in (
@@ -1791,10 +2138,15 @@ def main():
                        decimated=mpc_res["decimated"], cold=mpc_res["cold"])
     log(json.dumps({"main_path": main_res, "tick_path": tick_summary,
                     "mpc_tick_path": mpc_summary,
+                    "split_pipeline": {k: split[k] for k in (
+                        "ms_per_solve", "qps", "converged", "launches",
+                        "oracle_median")},
+                    "prox_xla_path": xla,
                     "build_seconds": build_s,
                     "wall_seconds": time.time() - t_start}))
     log(smi)
-    log(json.dumps({"kernels": [k1, k2_entry, k4_entry, k5_entry,
+    log(json.dumps({"kernels": [k1, k2_entry, dense_entries[0],
+                                dense_entries[1], k4_entry, k5_entry,
                                 k6_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

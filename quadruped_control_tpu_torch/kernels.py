@@ -35,14 +35,16 @@ import torch
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_ROOT = Path(__file__).resolve().parent / "_build"
 _SOURCES = ("qct_assemble.cu", "qct_fused_barrier.cu", "qct_fused_polish.cu",
-            "qct_commander.cu", "qct_substep.cu", "qct_mpc.cu")
+            "qct_commander.cu", "qct_substep.cu", "qct_mpc.cu",
+            "qct_dense_ipm.cu")
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-fmad=false", "-Xcompiler", "-fPIC")
 
 # Launches of each kernel since the last reset (plain integers).
 launch_counts = {"qct_fused_solve": 0, "qct_assemble": 0,
                  "qct_commander_pre": 0, "qct_substep": 0,
-                 "qct_mpc_riccati": 0}
+                 "qct_mpc_riccati": 0, "qct_dense_barrier": 0,
+                 "qct_dense_polish": 0}
 
 # The compiler's resource report (-Xptxas -v) of the build this process made
 # ("" when the library of an earlier build was loaded).
@@ -293,6 +295,11 @@ def load():
             lib.qct_mpc_riccati.argtypes = [vp] * 10 + [
                 ci, ctypes.POINTER(MpcParams), vp]
             lib.qct_mpc_riccati.restype = ci
+            lib.qct_dense_barrier.argtypes = [vp] * 7 + [
+                ci, ci, ctypes.c_float, vp]
+            lib.qct_dense_barrier.restype = ci
+            lib.qct_dense_polish.argtypes = [vp] * 11 + [ci, vp]
+            lib.qct_dense_polish.restype = ci
             lib.qct_error_string.argtypes = [ci]
             lib.qct_error_string.restype = ctypes.c_char_p
             _lib = lib
@@ -528,3 +535,56 @@ def mpc_riccati(block, yaw, phys, warm, params, n_steps):
     _check(lib, rc, "qct_mpc_riccati")
     launch_counts["qct_mpc_riccati"] += 1
     return F, diag, wout
+
+
+def _dense_problem(Qp, cp, Gp, hp):
+    device = cp.device
+    B = cp.shape[1]
+    for name, a, k in (("Q", Qp, 144), ("c", cp, 12), ("G", Gp, 288),
+                       ("h", hp, 24)):
+        _require_cuda(name, a, k, B, device)
+    return device, B
+
+
+def dense_barrier(Qp, cp, Gp, hp, *, iterations, tau):
+    """Launch the dense barrier kernel (K3a) once on the equilibrated ``(k,
+    B)`` CUDA tensors Q (144, B), c (12, B), G (288, B), h (24, B). Returns
+    the best iterate (x (12, B), s (24, B), z (24, B))."""
+    device, B = _dense_problem(Qp, cp, Gp, hp)
+    lib = load()
+    x = torch.empty((12, B), dtype=torch.float32, device=device)
+    s = torch.empty((24, B), dtype=torch.float32, device=device)
+    z = torch.empty((24, B), dtype=torch.float32, device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.qct_dense_barrier(
+            Qp.data_ptr(), cp.data_ptr(), Gp.data_ptr(), hp.data_ptr(),
+            x.data_ptr(), s.data_ptr(), z.data_ptr(), B, int(iterations),
+            float(tau), stream)
+    _check(lib, rc, "qct_dense_barrier")
+    launch_counts["qct_dense_barrier"] += 1
+    return x, s, z
+
+
+def dense_polish(Qp, cp, Gp, hp, x_in, s_in, z_in):
+    """Launch the dense certified polish kernel (K3b) once on the problem of
+    :func:`dense_barrier` from the point (x (12, B), s (24, B), z (24, B)).
+    Returns (x, s, z, cert (B,)); the 36 x 36 KKT scratch is per-thread
+    local memory."""
+    device, B = _dense_problem(Qp, cp, Gp, hp)
+    for name, a, k in (("x", x_in, 12), ("s", s_in, 24), ("z", z_in, 24)):
+        _require_cuda(name, a, k, B, device)
+    lib = load()
+    x = torch.empty((12, B), dtype=torch.float32, device=device)
+    s = torch.empty((24, B), dtype=torch.float32, device=device)
+    z = torch.empty((24, B), dtype=torch.float32, device=device)
+    cert = torch.empty((B,), dtype=torch.float32, device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.qct_dense_polish(
+            Qp.data_ptr(), cp.data_ptr(), Gp.data_ptr(), hp.data_ptr(),
+            x_in.data_ptr(), s_in.data_ptr(), z_in.data_ptr(), x.data_ptr(),
+            s.data_ptr(), z.data_ptr(), cert.data_ptr(), B, stream)
+    _check(lib, rc, "qct_dense_polish")
+    launch_counts["qct_dense_polish"] += 1
+    return x, s, z, cert

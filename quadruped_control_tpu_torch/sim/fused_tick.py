@@ -124,8 +124,9 @@ def make_fused_tick(model: WholeBodyModel, cfg: ControlConfig,
     Typical use: ``qp_polish=False, qp_tail=True``.
 
     ``qp_iterations=None`` resolves to 6 warm / 12 cold, the reference's
-    operating points. ``rows`` / ``qp_tail_rows`` are ignored (tile heights
-    of the TPU kernels).
+    operating points. ``rows`` / ``qp_tail_rows`` (tile heights of the TPU
+    kernels, default 8) set the size of the ``qp_tail`` slice as in the JAX
+    package (solver/fused.qp_tail_size) and nothing else.
 
     ``controller="mpc"`` replaces kernel 2 with the receding-horizon MPC
     kernel (K6): commander-pre additionally emits the MPC precursor block
@@ -167,7 +168,8 @@ def make_fused_tick(model: WholeBodyModel, cfg: ControlConfig,
         polish_multi_swap=qp_polish_multi_swap)
     tail_kw = dict(
         s_diag=qp_kw["s_diag"], w_diag=qp_kw["w_diag"],
-        tail_divisor=qp_tail_divisor, tail_sweeps=qp_tail_sweeps,
+        tail_divisor=qp_tail_divisor, rows=rows, tail_rows=qp_tail_rows,
+        tail_sweeps=qp_tail_sweeps,
         tail_prox_steps=qp_tail_prox_steps,
         tail_prox_iterations=qp_tail_prox_iterations,
         tail_prox_sweeps=qp_tail_prox_sweeps)

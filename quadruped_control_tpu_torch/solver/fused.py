@@ -38,9 +38,16 @@ it launches the kernel or raises.
 Layout. The kernels map one QP to one CUDA thread and read structure-of-
 arrays tensors ``(k, B)`` (neighbouring threads, neighbouring addresses);
 the ragged edge is masked in the kernel, so any B is accepted. The ``(B,
-k)`` public functions transpose at the edge. ``rows``, ``barrier_rows``,
-``polish_rows`` and ``tail_rows`` (tile heights of the TPU kernel) are
-accepted for signature parity and ignored.
+k)`` public functions transpose at the edge. ``barrier_rows`` and
+``polish_rows`` (tile heights of the TPU kernel) are accepted for signature
+parity and ignored. ``rows`` and ``tail_rows`` set the sizes of the
+compacted re-solve slices and nothing else: the JAX package pads its batch
+to a multiple of ``rows * 128`` and sizes each slice from that padded batch
+(:func:`two_phase_tail_size`, :func:`prox_slice_size`,
+:func:`qp_tail_size`); the port pads nothing and caps each slice at the real
+B. In the stable worst-first order, padded copies of instance 0 sort after
+every real unconverged instance, and a merge takes only flags that
+improved, so the real instances whose flag can change are the same.
 """
 
 from __future__ import annotations
@@ -51,11 +58,14 @@ import torch
 
 from quadruped_control_tpu_torch import kernels
 from quadruped_control_tpu_torch.config import BalanceConfig
+from quadruped_control_tpu_torch.math.rotations import skew
 from quadruped_control_tpu_torch.ops.dynamics import (
     SWING_ROW_RELAX,
+    assemble_qp,
+    cone_constraints,
     pd_accelerations,
 )
-from quadruped_control_tpu_torch.solver.ipm import IPMSolution
+from quadruped_control_tpu_torch.solver.ipm import IPMSolution, solve_qp_prox
 
 N = 12
 M = 24
@@ -63,6 +73,9 @@ NK = N + M  # full KKT dimension (36)
 _POLISH_SWEEPS_FUSED = 8
 _POLISH_REFINE = 4
 _N_DIAG = 6  # cert, conv, pr, dr, gap, reserved
+SUB = 8      # the TPU kernels' default tile height (``rows``)
+LANE = 128
+TILE = SUB * LANE  # the dense IPM kernels' grid step
 
 # Friction-cone row sparsity (ops/dynamics.py friction_cone_rows, one-sided
 # form): per leg, row t has nonzeros in local columns _ROW_COLS[t] with signs
@@ -1194,6 +1207,62 @@ def solve_grf_qp_fused_split(r_masked, b, stance, mu, fz_min, fz_max, *,
         tau=tau, warm=(sol1.x, sol1.s, sol1.z))
 
 
+# ---------------------------------------------------------------------------
+# Sizes of the compacted re-solve slices: the JAX package's arithmetic
+# (solver/pallas_fused.py), from the batch it would pad to.
+# ---------------------------------------------------------------------------
+
+def _rows(rows):
+    return SUB if rows is None else int(rows)
+
+
+def padded_batch(B: int, rows=None, multiple: int = 1) -> int:
+    """The batch the JAX package pads B to: a multiple of ``rows * 128 *
+    multiple`` (pallas_fused.py:1580-1582)."""
+    tile = _rows(rows) * LANE * multiple
+    return -(-int(B) // tile) * tile
+
+
+def two_phase_tail_size(B: int, rows=None, tail_divisor: int = 8) -> int:
+    """Instances re-solved by the long schedule of the two-phase solve:
+    ``Bp // tail_divisor`` of the batch padded to ``rows * 128 *
+    tail_divisor`` (pallas_fused.py:1580-1582, :1439), capped at B."""
+    Bp = padded_batch(B, rows, tail_divisor)
+    return min(Bp // tail_divisor, int(B))
+
+
+def prox_slice_size(B: int, rows=None, two_phase: bool = False,
+                    tail_divisor: int = 8, prox_divisor: int = 64,
+                    backend: str = "kernel") -> int:
+    """The JAX package's slice size of the ``prox_tail`` stage
+    (pallas_fused.py:1632-1634; the kernel backend re-rounds to ``min(rows,
+    8) * 128`` and caps at the padded batch, :1652-1655). NOT capped at B:
+    the xla backend picks its branch from this number (a multiple of 1024
+    runs the dense IPM kernels); the slice the port re-solves is ``min(size,
+    B)``."""
+    rows = _rows(rows)
+    Bp = padded_batch(B, rows, tail_divisor if two_phase else 1)
+    Bt = max(Bp // prox_divisor, 1)
+    if Bp >= TILE:
+        Bt = -(-max(Bt, TILE) // TILE) * TILE
+    if backend == "kernel":
+        tile_k = min(rows, 8) * LANE
+        Bt = min(-(-Bt // tile_k) * tile_k, Bp)
+    return Bt
+
+
+def qp_tail_size(B: int, rows=None, tail_rows=None,
+                 tail_divisor: int = 4) -> int:
+    """Instances re-solved by the tick's certification tail:
+    ``max(Bp // tail_divisor, tail_rows * 128)`` rounded up to ``tail_rows *
+    128`` and capped at the padded batch ``Bp`` (pallas_fused.py:1812-1815),
+    then at B."""
+    Bp = padded_batch(B, rows)
+    tile2 = _rows(tail_rows) * LANE
+    Bt = max(Bp // tail_divisor, tile2)
+    return min(-(-Bt // tile2) * tile2, Bp, int(B))
+
+
 def _worst_first(converged, count):
     """Indices of the first ``count`` instances with the unconverged ones in
     front (stable order): the compaction of the tail stages."""
@@ -1222,6 +1291,47 @@ def _merge_solution(sol: IPMSolution, idx, sol2: IPMSolution) -> IPMSolution:
     )
 
 
+def _dense_slice(args, idx, cfg: BalanceConfig):
+    """Dense ``(Q, c, G, h)`` of the compacted slice ``idx`` of the flat
+    kernel inputs ``args`` (pallas_fused.py:1687-1699): ``A`` from the
+    slice's levers and stance, then ``assemble_qp`` and
+    ``cone_constraints``."""
+    def take(v):
+        return v if v.dim() == 0 else v[idx]
+
+    rm = args[0][idx]          # (Bt, 4, 3) stance-masked world levers
+    bb = args[1][idx]          # (Bt, 6)
+    stl = args[2][idx] > 0.5   # (Bt, 4)
+    eye3 = torch.eye(3, dtype=rm.dtype, device=rm.device)
+    top = torch.cat([eye3 * stl[:, l, None, None] for l in range(4)], dim=-1)
+    bot = torch.cat([skew(rm[:, l]) for l in range(4)], dim=-1)
+    A = torch.cat([top, bot], dim=-2)   # (Bt, 6, 12)
+    Qd, cd = assemble_qp(A, bb, cfg)
+    Gd, hd = cone_constraints(stl, mu=take(args[3]), fz_min=take(args[4]),
+                              fz_max=take(args[5]), cfg=cfg, dtype=rm.dtype)
+    return Qd, cd, Gd, hd
+
+
+def _prox_stage_dense(args, idx, x0, cfg: BalanceConfig, dense: bool, *,
+                      prox_rho: float, prox_steps: int, prox_iterations: int
+                      ) -> IPMSolution:
+    """``prox_backend="xla"`` on the compacted slice ``idx``
+    (pallas_fused.py:1686-1733): the dense slice (:func:`_dense_slice`),
+    then the proximal restarts from ``x0`` — through the dense IPM kernels
+    when ``dense`` (the JAX slice size is a multiple of 1024), else
+    ``solve_qp_prox`` — certified against the ORIGINAL KKT at tol 3e-5."""
+    from quadruped_control_tpu_torch.solver import fused_ipm  # imports us
+
+    Qd, cd, Gd, hd = _dense_slice(args, idx, cfg)
+    if dense:
+        return fused_ipm.solve_qp_prox_fused(
+            Qd, cd, Gd, hd, x0, rho_rel=prox_rho, prox_steps=prox_steps,
+            iterations=prox_iterations, tol=3e-5, device=Qd.device)
+    return solve_qp_prox(Qd, cd, Gd, hd, x0=x0, rho_rel=prox_rho,
+                         prox_steps=prox_steps, iterations=prox_iterations,
+                         tol=3e-5)
+
+
 def _take_param(v, idx, B, device):
     v = torch.as_tensor(v, dtype=torch.float32, device=device)
     return v if v.dim() == 0 else v.expand(B)[idx]
@@ -1243,17 +1353,19 @@ def solve_grf_qp_fused_two_phase(
 
     Phase 1 runs the fused kernel with a SHORT polish (most instances
     certify in 1-2 sweeps). The uncertified tail is compacted to the front
-    of a ``B // tail_divisor`` re-solve batch (at least 1) by a stable
-    argsort on the converged flag, run through the kernel again with a LONG
-    schedule, and scattered back where it improved the flag. ACTIVE-SET
-    SWEEPS are the decisive knob for the degenerate 4-stance tail (rank-6
-    A^T S A + 1e-5 W, condition ~1e6).
+    of a re-solve batch by a stable argsort on the converged flag, run
+    through the kernel again with a LONG schedule, and scattered back where
+    it improved the flag. ACTIVE-SET SWEEPS are the decisive knob for the
+    degenerate 4-stance tail (rank-6 A^T S A + 1e-5 W, condition ~1e6).
 
-    split=True runs phase 1 as barrier-only + polish-only launches (see
-    solve_grf_qp_fused_split). ``rows`` is ignored; any B is accepted.
+    The re-solve batch has :func:`two_phase_tail_size` instances: ``Bp //
+    tail_divisor`` of the batch the JAX package pads to a multiple of ``rows
+    * 128 * tail_divisor``, capped at B (``rows`` sets this size and nothing
+    else; any B is accepted). split=True runs phase 1 as barrier-only +
+    polish-only launches (see solve_grf_qp_fused_split).
     """
     B = r_masked.shape[0]
-    Bt = max(B // tail_divisor, 1)
+    Bt = two_phase_tail_size(B, rows, tail_divisor)
     common = dict(s_diag=s_diag, w_diag=w_diag, swing_relax=swing_relax,
                   polish_refine=polish_refine,
                   polish_multi_swap=polish_multi_swap, tol=tol, tau=tau)
@@ -1351,18 +1463,30 @@ def solve_balance_qp_fused(R, R_d, x, xdot, w, x_d, xdot_d, w_d,
 
     prox_tail=True adds a THIRD phase for certification-critical sweeps: the
     residual uncertified instances (the degenerate 4-stance family the
-    kernel tail saturates on) are compacted into a ``B // prox_divisor``
-    slice (at least 1) and re-solved by the kernel's proximal-restart mode
-    (``prox_backend="kernel"``). ``prox_backend="xla"`` of the reference
-    (dense assembly + restarts of the dense IPM kernels) is not ported yet.
-    ``rows`` is ignored.
+    kernel tail saturates on) are compacted into a slice of
+    :func:`prox_slice_size` instances (the JAX package's size from its
+    padded batch, capped at B) and re-solved by proximal restarts.
+    prox_backend:
+
+      - ``"kernel"``: the fused kernel's proximal-restart mode (one launch).
+      - ``"xla"``: dense assembly of the slice (``assemble_qp``,
+        ``cone_constraints``), then ``prox_steps`` restarts of
+        :func:`~quadruped_control_tpu_torch.solver.fused_ipm.solve_qp_ipm_fused`
+        (the dense barrier K3a + polish K3b, two launches per restart) on
+        ``Q + rho I``, certified against the ORIGINAL KKT
+        (:func:`~quadruped_control_tpu_torch.solver.fused_ipm.solve_qp_prox_fused`)
+        when the JAX slice size is a multiple of 1024; otherwise
+        ``solver/ipm.solve_qp_prox``, as in the JAX package. The JAX
+        package also takes ``solve_qp_prox`` whenever its kernels run in
+        interpret mode; the port has no such mode (the device of the
+        tensors picks kernel or plain version, with the same branch).
+
+    ``rows`` sets the slice sizes (two-phase tail and prox slice) as in the
+    JAX package and nothing else.
     """
-    if prox_tail and prox_backend != "kernel":
-        raise NotImplementedError(
-            f"prox_backend={prox_backend!r}: the dense-restart prox stage "
-            "needs the dense barrier/polish kernels of solver/pallas_ipm.py "
-            "(ROADMAP.md queue 2, K3a/K3b), which are not ported; use "
-            "prox_backend='kernel'")
+    if prox_tail and prox_backend not in ("kernel", "xla"):
+        raise ValueError(f"prox_backend must be 'kernel' or 'xla', got "
+                         f"{prox_backend!r}")
     r_masked, b = balance_precursors(
         R, R_d, x, xdot, w, x_d, xdot_d, w_d, foot_positions, stance_mask,
         cfg, mass=mass, inertia_diag=inertia_diag)
@@ -1399,15 +1523,23 @@ def solve_balance_qp_fused(R, R_d, x, xdot, w, x_d, xdot_d, w_d,
             tail_iterations=tail_iterations, tail_sweeps=tail_sweeps,
             tail_refine=tail_refine, tail_prox_steps=tail_prox_steps,
             tail_prox_iterations=tail_prox_iterations,
-            tail_prox_sweeps=tail_prox_sweeps, split=split,
+            tail_prox_sweeps=tail_prox_sweeps, split=split, rows=rows,
             **common)
     else:
         sol = solve_grf_qp_fused(
             *args, iterations=iterations, polish=polish, **common)
     if prox_tail:
+        Bt = prox_slice_size(B, rows, two_phase, tail_divisor, prox_divisor,
+                             prox_backend)
+        idx = _worst_first(sol.converged, min(Bt, B))
+    if prox_tail and prox_backend == "xla":
+        psol = _prox_stage_dense(args, idx, sol.x[idx], cfg, Bt % TILE == 0,
+                                 prox_rho=prox_rho, prox_steps=prox_steps,
+                                 prox_iterations=prox_iterations)
+        sol = _merge_solution(sol, idx, psol)
+    elif prox_tail:
         # The kernel's proximal restarts on the compacted slice — one launch;
         # certify-against-original-KKT semantics.
-        idx = _worst_first(sol.converged, max(B // prox_divisor, 1))
         psol = solve_grf_qp_fused(
             args[0][idx], args[1][idx], args[2][idx],
             _take_param(args[3], idx, B, dev),
@@ -1442,8 +1574,8 @@ def solve_balance_qp_fused(R, R_d, x, xdot, w, x_d, xdot_d, w_d,
 def solve_grf_qp_tail_packed(rp, bp, stp, mup, fminp, fmaxp,
                              xp, sp, zp, diagp, *, s_diag, w_diag,
                              swing_relax=SWING_ROW_RELAX,
-                             tail_divisor: int = 4, tail_rows=None,
-                             tail_sweeps: int = 24,
+                             tail_divisor: int = 4, rows=None,
+                             tail_rows=None, tail_sweeps: int = 24,
                              tail_refine: int = _POLISH_REFINE,
                              tail_prox_steps: int = 2,
                              tail_prox_iterations: int = 8,
@@ -1455,21 +1587,25 @@ def solve_grf_qp_tail_packed(rp, bp, stp, mup, fminp, fmaxp,
 
     Takes the ``(k, B)`` inputs + phase-1 solution of
     :func:`solve_grf_qp_fused_packed` (typically a warm barrier-only tick
-    solve), compacts the UNCERTIFIED instances to a ``B // tail_divisor``
-    slice (at least 1) by a stable argsort on the converged flag, and
-    re-solves only that slice with the long warm-seeded polish + proximal
-    restarts. Improved instances scatter back into (x, s, z, diag), so a
+    solve), compacts the UNCERTIFIED instances to a slice of
+    :func:`qp_tail_size` instances by a stable argsort on the converged
+    flag, and re-solves only that slice with the long warm-seeded polish +
+    proximal restarts. The slice size is the JAX package's: ``max(Bp //
+    tail_divisor, tail_rows * 128)`` rounded up to ``tail_rows * 128``, with
+    ``Bp`` the batch padded to ``rows * 128`` (the main kernel's tile
+    height), capped at B; ``rows`` and ``tail_rows`` (default 8 each) set
+    this size and nothing else. Improved instances scatter back into (x, s, z, diag), so a
     warm carry ALSO inherits the certified triple.
 
     The strict-certificate bit (diag row 0) comes from the tail solve's OWN
     diag: a lane merged on the loose conv flag (row 1) takes the tail
     solve's whole diag column and never inherits an unearned strict bit.
-    ``tail_rows`` is ignored. ``tail_ff`` defaults to False: the reference
+    ``tail_ff`` defaults to False: the reference
     measured float-float refinement trajectory-divergent in its closed loop.
     Returns updated (x, s, z, diag) in the same layout.
     """
     B = rp.shape[1]
-    Bt = max(B // tail_divisor, 1)
+    Bt = qp_tail_size(B, rows, tail_rows, tail_divisor)
     conv = diagp[1] > 0.5
     idx = _worst_first(conv, Bt)
 

@@ -303,10 +303,10 @@ def test_wrapper_contract_errors():
         pf.solve_grf_qp_fused_packed(inp[0].double(), *inp[1:], **KW)
     with pytest.raises(ValueError, match="requires polish"):
         pf.solve_grf_qp_fused_packed(*inp, polish=False, prox_steps=1, **KW)
-    with pytest.raises(NotImplementedError, match="K3a"):
+    with pytest.raises(ValueError, match="prox_backend"):
         pf.solve_balance_qp_fused(
             s.R, s.R_d, s.x, s.xdot, s.w, s.x_d, s.xdot_d, s.w_d, s.feet,
-            s.stance, BAL, prox_tail=True, prox_backend="xla")
+            s.stance, BAL, prox_tail=True, prox_backend="dense")
     # The kernel launchers take CUDA tensors only: a CPU tensor never reaches
     # a kernel, and the launchers do not fall back.
     sched = pf.FusedSchedule(**KW)

@@ -282,8 +282,10 @@ def test_chunked_equals_unchunked_bitwise():
 
 def test_cold_tick_rollout_and_the_tail():
     """qp_warm_start=False returns no warm carry. qp_polish=False with
-    qp_tail=True is four launches per tick: the tail re-solves the B / 4
-    worst lanes and never loses a converged one."""
+    qp_tail=True is four launches per tick: the tail re-solves the worst
+    lanes, as many as the JAX package's slice at this batch (rows 8 pad 24
+    lanes to 1024, whose quarter exceeds 24: every lane), and never loses a
+    converged one."""
     plant, carry = _rollout_inputs((3,))
     cold = ft.make_fused_tick(TM32, TCFG, gravity_comp=True,
                               qp_warm_start=False)
@@ -307,7 +309,9 @@ def test_cold_tick_rollout_and_the_tail():
     conv_b, conv_t = db[1] > 0.5, dt_[1] > 0.5
     assert bool((conv_t | ~conv_b).all())
     assert int(conv_t.sum()) - int(conv_b.sum()) >= 1
-    assert int((conv_t & ~conv_b).sum()) <= B // 4
+    Bt = pf.qp_tail_size(B, rows=8, tail_rows=1, tail_divisor=4)
+    assert Bt == B
+    assert int((conv_t & ~conv_b).sum()) <= Bt
     # The improved lanes changed in the warm carry too; the others did not.
     changed = (wt[0] != wb[0]).any(0)
     assert bool((changed & ~conv_b)[conv_t & ~conv_b].all())

@@ -54,12 +54,15 @@ def test_port_has_the_expected_modules():
                 "sim/fused_tick.py",
                 # the receding-horizon MPC tick
                 "mpc/__init__.py", "mpc/horizon.py", "mpc/structured.py",
-                "mpc/fused_riccati.py"):
+                "mpc/fused_riccati.py",
+                # the dense QP solve
+                "solver/fused_ipm.py"):
         assert f"quadruped_control_tpu_torch/{rel}" in have
     csrc = ROOT / "quadruped_control_tpu_torch" / "csrc"
     assert sorted(p.name for p in csrc.glob("*.cu")) == [
-        "qct_assemble.cu", "qct_commander.cu", "qct_fused_barrier.cu",
-        "qct_fused_polish.cu", "qct_mpc.cu", "qct_substep.cu"]
+        "qct_assemble.cu", "qct_commander.cu", "qct_dense_ipm.cu",
+        "qct_fused_barrier.cu", "qct_fused_polish.cu", "qct_mpc.cu",
+        "qct_substep.cu"]
 
 
 def test_every_kernel_source_is_built_and_counted():
@@ -72,7 +75,8 @@ def test_every_kernel_source_is_built_and_counted():
         p.name for p in csrc.glob("*.cu"))
     assert set(kernels.launch_counts) == {
         "qct_fused_solve", "qct_assemble", "qct_commander_pre",
-        "qct_substep", "qct_mpc_riccati"}
+        "qct_substep", "qct_mpc_riccati", "qct_dense_barrier",
+        "qct_dense_polish"}
     kernels.reset_launch_counts()
     assert not any(kernels.launch_counts.values())
 

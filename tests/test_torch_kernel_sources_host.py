@@ -1,10 +1,10 @@
-"""PyTorch port: the SOURCES of the commander-pre (K4), substep (K5) and MPC
-(K6) CUDA kernels, compiled for the host and held against the plain PyTorch
-versions.
+"""PyTorch port: the SOURCES of the commander-pre (K4), substep (K5), MPC
+(K6) and dense IPM (K3a, K3b) CUDA kernels, compiled for the host and held
+against the plain PyTorch versions.
 
 A CUDA kernel cannot run without a card, but the per-instance bodies of K4,
-K5 and K6 (csrc/qct_commander.cuh, csrc/qct_substep.cuh, csrc/qct_mpc.cuh)
-are plain C++ behind a macro: tests/torch_port_host_shim.cpp loops them over the batch, ``g++
+K5, K6, K3a and K3b (csrc/qct_commander.cuh, csrc/qct_substep.cuh,
+csrc/qct_mpc.cuh, csrc/qct_dense_ipm.cuh) are plain C++ behind a macro: tests/torch_port_host_shim.cpp loops them over the batch, ``g++
 -ffp-contract=off`` builds it, and the same ctypes parameter structs the CUDA
 launchers fill are handed to it. Float32 on both sides. This is a rehearsal
 of the kernels' arithmetic, not of the kernels: host ``sinf``/``atan2f`` and
@@ -12,7 +12,10 @@ torch's CPU ones differ in the last bits, so the tolerances are those of
 float32 round-off carried through the chain (on the card K4 is bitwise equal
 to its plain version, chip_smoke.py). K6 is held as on the card: by the
 objective of its horizon forces and by its convergence statistics (a near-tie
-of the merit can flip the best-iterate pick on a lane).
+of the merit can flip the best-iterate pick on a lane). K3a and K3b follow
+their plain versions statement for statement: bitwise, once the plain
+version's reciprocal square root is correctly rounded as the kernel's ``1.0f
+/ sqrtf`` is (``torch.sqrt`` on the CPU is not, in a few lanes in 1e3).
 """
 
 import ctypes
@@ -72,6 +75,10 @@ def host(tmp_path_factory):
     lib.host_mpc_riccati.argtypes = [vp] * 10 + [
         ci, ctypes.POINTER(kernels.MpcParams)]
     lib.host_mpc_riccati.restype = None
+    lib.host_dense_barrier.argtypes = [vp] * 7 + [ci, ci, ctypes.c_float]
+    lib.host_dense_barrier.restype = None
+    lib.host_dense_polish.argtypes = [vp] * 11 + [ci]
+    lib.host_dense_polish.restype = None
     return lib
 
 
@@ -288,3 +295,70 @@ def test_mpc_source_matches_plain_version(host, N, mdt, iterations):
         assert bool((wout[:48 * N] > 0).all())
         warm = w
     assert warm is not None
+
+
+def _exact_rsqrt(x):
+    # sqrt of a float32 in float64, rounded once to float32: correctly
+    # rounded, as the kernel's sqrtf.
+    return 1.0 / torch.sqrt(x.double()).float()
+
+
+@pytest.fixture(scope="module")
+def dense():
+    from torch_port_helpers import dense_problem
+
+    return dense_problem(23, 256)["soa"]
+
+
+def _host_barrier(host, prob, iterations):
+    B = prob[1].shape[1]
+    out = (torch.empty(12, B), torch.empty(24, B), torch.empty(24, B))
+    host.host_dense_barrier(*[a.data_ptr() for a in prob],
+                            *[o.data_ptr() for o in out], B, iterations,
+                            0.995)
+    return out
+
+
+@pytest.mark.parametrize("iterations", [3, 20])
+def test_dense_barrier_source_matches_plain_version(host, dense, iterations,
+                                                    monkeypatch):
+    """K3a's body (B = 256, randomized GRF QPs equilibrated by the JAX
+    package) is bitwise its plain version with a correctly rounded
+    reciprocal square root; with torch's CPU sqrt the two stay within the
+    objective of each other (the rounding moves a few lanes' iterates)."""
+    from quadruped_control_tpu_torch.solver import fused_ipm as fi
+
+    got = _host_barrier(host, dense, iterations)
+    approx = fi._dense_barrier_plain(*dense, iterations=iterations,
+                                     tau=0.995)
+    monkeypatch.setattr(fi, "_rsqrt", _exact_rsqrt)
+    want = fi._dense_barrier_plain(*dense, iterations=iterations, tau=0.995)
+    for g, w, name in zip(got, want, "xsz"):
+        assert torch.equal(g, w), name
+    assert bool(torch.isfinite(approx[0]).all())
+    same = (approx[0] == got[0]).all(0).float().mean()
+    assert float(same) > 0.5
+
+
+def test_dense_polish_source_matches_plain_version(host, dense):
+    """K3b's body from one barrier point, with two poisoned lanes (NaN in Q,
+    inf in h): bitwise its plain version in all four outputs (no square
+    root in it; the Dekker products are exact on both sides under
+    -ffp-contract=off), the poisoned lanes uncertified."""
+    from quadruped_control_tpu_torch.solver import fused_ipm as fi
+
+    prob = [a.clone() for a in dense]
+    bar = fi._dense_barrier_plain(*prob, iterations=20, tau=0.995)
+    prob[0][7, 4] = float("nan")
+    prob[3][3, 11] = float("inf")
+    B = prob[1].shape[1]
+    out = (torch.empty(12, B), torch.empty(24, B), torch.empty(24, B),
+           torch.empty(B))
+    host.host_dense_polish(*[a.data_ptr() for a in prob],
+                           *[a.data_ptr() for a in bar],
+                           *[o.data_ptr() for o in out], B)
+    want = fi._dense_polish_plain(*prob, *bar)
+    for g, w, name in zip(out, want, ("x", "s", "z", "cert")):
+        assert torch.equal(g, w), name
+    assert float(out[3][4]) == 0.0 and float(out[3][11]) == 0.0
+    assert float(out[3].mean()) > 0.9

@@ -255,3 +255,44 @@ def mpc_objective_np(d, F, horizon, dt, cfg_jax, lanes):
     x = np.asarray(F, np.float64)[lanes].reshape(len(lanes), -1)
     return 0.5 * np.einsum("bi,bij,bj->b", x, H, x) + np.einsum("bi,bi->b",
                                                                  c, x)
+
+
+# ---------------------------------------------------------------------------
+# Dense GRF QPs (fourth slice of the port: solver/fused_ipm.py), equilibrated
+# by the JAX package, in both packages' layouts.
+# ---------------------------------------------------------------------------
+
+def dense_problem(seed, batch, randomize=True):
+    """dict(tiles: JAX (8, 128) tiles [Q 144, c 12, G 288, h 24] (None
+    unless batch is 1024), soa: the port's (k, B) float32 tensors of the same
+    equilibrated problem, orig: (Q, c, G, h) float64, scale: (Dv, Er, nu)
+    float64, stance)."""
+    from quadruped_control_tpu.config import mit_cheetah_config
+    from quadruped_control_tpu.solver.ipm import equilibrate
+
+    d = numpy_scenarios(seed, batch, randomize=randomize, dtype=np.float32)
+    qp = jscen.assemble_qp_batch(jax_scenarios(d), mit_cheetah_config())
+    eq = equilibrate(qp.Q, qp.c, qp.G, qp.h)
+    flat = [np.asarray(a, np.float32).reshape(batch, -1) for a in eq[:4]]
+    return dict(
+        tiles=([list(jnp.asarray(a.T).reshape(-1, 8, 128)) for a in flat]
+               if batch == 1024 else None),
+        soa=tuple(torch.from_numpy(np.ascontiguousarray(a.T)) for a in flat),
+        orig=tuple(np.asarray(a, np.float64) for a in (qp.Q, qp.c, qp.G,
+                                                        qp.h)),
+        scale=tuple(np.asarray(a, np.float64) for a in eq[4:]),
+        stance=d["stance"])
+
+
+def tiles_to_torch(lst):
+    """List of (8, 128) JAX tiles -> (k, 1024) torch tensor."""
+    return torch.from_numpy(np.stack([np.asarray(v).reshape(-1)
+                                      for v in lst]))
+
+
+def dense_objective(problem, x_eq):
+    """Objective of the ORIGINAL problem of ``dense_problem`` at the
+    mapped-back point of an equilibrated (12, B) iterate."""
+    Q, c = problem["orig"][:2]
+    return objective_np(Q, c, t2n(x_eq).T.astype(np.float64)
+                        * problem["scale"][0])
