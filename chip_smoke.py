@@ -35,7 +35,8 @@ trot limits; whole ticks through the plain versions, the decimated rollout's
 launch counts; K6 against its plain version at every shape and mode the path
 uses (cold-15, warm-8 with flipped schedule bits, N = 24 without
 best-iterate tracking, the unpacked entry at a ragged batch, poisoned
-lanes); ms per tick and per launch beside the bound.
+lanes), K6's launch geometry and resident blocks per SM; ms per tick and per
+launch beside the bound (K6 also at N = 24).
 
 Then the fourth main path, the dense QP solve (solver/fused_ipm.py: the
 dense barrier K3a, then the certified polish K3b) at B = 32768: both kernels
@@ -1524,6 +1525,14 @@ def phase_mpc_kernel_vs_plain(cfg, mpc):
         f"on MPC blocks K4 emits from trot states (a third into the warm-8 "
         f"trot)")
     B = B_TICK
+    occ = kernels.mpc_occupancy(B)
+    log(f"  K6 launch at B = {B}: {occ['blocks']} blocks of "
+        f"{occ['threads']} threads ({occ['robots_per_block']} robots of "
+        f"{occ['lanes']} lanes), {occ['shared_bytes']} bytes of dynamic "
+        f"shared memory a block ({occ['shared_words']} words a robot); "
+        f"{occ['blocks_per_sm']} blocks resident per SM, "
+        f"{occ['registers']} registers and {occ['local_bytes']} bytes of "
+        f"stack a thread")
     tick = mpc["tick"]
     res2 = mpc["res_mid"]
     state_m, _ = ftick.pack_whole_body_state(res2.plant)
@@ -1621,7 +1630,7 @@ def phase_mpc_kernel_vs_plain(cfg, mpc):
           "K6: the poisoned lanes are not certified; the 1e6 lane stays "
           "finite")
     log(f"  K6 worst max|dF| on certified lanes over all modes: {worst:.3e}")
-    return dict(max_abs_err=worst, modes=modes)
+    return dict(max_abs_err=worst, modes=modes, geometry=occ)
 
 
 def phase_mpc_times(cfg, mpc):
@@ -1687,9 +1696,17 @@ def phase_mpc_times(cfg, mpc):
     ms6c = event_ms(lambda: mpc["cold_tick"].solve(k4[9]), 5)
     b6c, by6c = bound_ms(B * mpc_bytes(MPC_N, False),
                          B * ops_mpc(MPC_N, st15.iterations, False))
+    blk24 = fcmd.commander_pre_packed(state_p, carry_p, cmd_p,
+                                      consts=tick.consts, mpc_horizon=24,
+                                      mpc_dt=0.02)[9]
+    st24 = _mpc_settings(cfg, 24, 0.02, 25)
+    ms6n = event_ms(lambda: _mpc_solve(blk24, None, st24), 5)
+    b6n, by6n = bound_ms(B * mpc_bytes(24, False),
+                         B * ops_mpc(24, st24.iterations, False))
     out["k6"] = dict(ms=ms6, plain_ms=plain6, bound_ms=b6, bound_by=by6,
                      operations_per_lane=ops6,
-                     cold15=dict(ms=ms6c, bound_ms=b6c, bound_by=by6c))
+                     cold15=dict(ms=ms6c, bound_ms=b6c, bound_by=by6c),
+                     n24_cold25=dict(ms=ms6n, bound_ms=b6n, bound_by=by6n))
     F_p = tick.solve(k4[9], res2.warm)[0]
     extras = (F_p[0:12], k4[6], k4[2])
     ms5 = event_ms(lambda: tick.stepper.packed(state_p, *extras,
@@ -1700,7 +1717,8 @@ def phase_mpc_times(cfg, mpc):
         f"{b4:.5f} ms, {by4})")
     log(f"  K6 warm-8: {ms6:.4f} ms (plain {plain6:.0f} ms, bound {b6:.5f} "
         f"ms, {by6}, {ops6} operations per lane); cold-15 {ms6c:.4f} ms "
-        f"(bound {b6c:.5f} ms)")
+        f"(bound {b6c:.5f} ms); N = 24 cold, 25 iterations {ms6n:.4f} ms "
+        f"(bound {b6n:.5f} ms)")
     log(f"  K5: {ms5:.4f} ms; the three launches sum to {in_k:.4f} ms; share "
         f"of the warm-8 tick not inside a kernel: "
         f"{(ms_tick - in_k) / ms_tick:.3f}")
@@ -2106,7 +2124,7 @@ def main():
         "max_abs_err": k6["max_abs_err"], "library_ms": None,
         "shape": f"B={B_TICK}, N={MPC_N}, warm, {MPC_ITERS} iterations, "
                  f"1 launch per MPC tick (modes: {list(k6['modes'])})",
-        **mpc_times["k6"], "modes": k6["modes"],
+        **mpc_times["k6"], "modes": k6["modes"], "geometry": k6["geometry"],
     }
     dense_entries = []
     for key, nm, line, k3 in (

@@ -23,12 +23,14 @@ certificate rests on).
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import threading
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -142,9 +144,52 @@ class MpcParams(ctypes.Structure):
     ]
 
 
-# Scratch words per horizon step and instance of the MPC kernel (F, s, z,
+# Scratch words per horizon step and robot of the MPC kernel (F, s, z,
 # residuals, right-hand side, c, h, best F, feed-forward, gains).
 MPC_WORDS_PER_STEP = 324
+# Robots a block of the MPC kernel runs. Its lanes per robot, thread limit
+# and shared words per robot are the build's (mpc_layout).
+MPC_ROBOTS_PER_BLOCK = 8
+# Shared memory one block may hold on a Hopper card (227 KB).
+SHARED_BYTES_MAX = 232448
+
+
+class MpcLayout(NamedTuple):
+    """What a build of the MPC kernel reports (csrc/qct_mpc.cuh
+    ``qmpc_layout``): lanes per robot, threads a block at most (its
+    ``__launch_bounds__``), words of shared memory per robot."""
+
+    lanes: int
+    max_threads: int
+    shared_words: int
+
+
+class MpcGeometry(NamedTuple):
+    """Launch of the MPC kernel: robot slot ``blockIdx.x * robots_per_block
+    + threadIdx.x // lanes`` (slots past B run along and write no output)."""
+
+    blocks: int
+    threads: int
+    robots_per_block: int
+    shared_bytes: int
+
+
+def mpc_launch_geometry(B: int, layout: MpcLayout) -> MpcGeometry:
+    """The MPC kernel's launch for B robots: blocks of MPC_ROBOTS_PER_BLOCK
+    robots, each with ``layout.lanes`` threads and its shared words (which
+    do not grow with the horizon). Raises where such a block does not fit
+    the build or the card: more threads than the kernel is compiled for, or
+    more shared memory than a Hopper block has."""
+    threads = MPC_ROBOTS_PER_BLOCK * layout.lanes
+    shared = MPC_ROBOTS_PER_BLOCK * layout.shared_words * 4
+    if threads > layout.max_threads or shared > SHARED_BYTES_MAX:
+        raise ValueError(
+            f"{MPC_ROBOTS_PER_BLOCK} robots a block need {threads} threads "
+            f"and {shared} bytes of shared memory; the kernel is compiled "
+            f"for {layout.max_threads} threads and a block has "
+            f"{SHARED_BYTES_MAX} bytes")
+    return MpcGeometry(-(-B // MPC_ROBOTS_PER_BLOCK), threads,
+                       MPC_ROBOTS_PER_BLOCK, shared)
 
 
 def _fill(struct, values: dict):
@@ -293,8 +338,12 @@ def load():
                 ci, ci, ctypes.c_float, ctypes.POINTER(SubstepParams), vp]
             lib.qct_substep.restype = ci
             lib.qct_mpc_riccati.argtypes = [vp] * 10 + [
-                ci, ctypes.POINTER(MpcParams), vp]
+                ci, ci, ci, ci, ctypes.POINTER(MpcParams), vp]
             lib.qct_mpc_riccati.restype = ci
+            lib.qct_mpc_layout.argtypes = [vp]
+            lib.qct_mpc_layout.restype = ci
+            lib.qct_mpc_occupancy.argtypes = [ci, ci, vp]
+            lib.qct_mpc_occupancy.restype = ci
             lib.qct_dense_barrier.argtypes = [vp] * 7 + [
                 ci, ci, ctypes.c_float, vp]
             lib.qct_dense_barrier.restype = ci
@@ -496,7 +545,8 @@ def mpc_riccati(block, yaw, phys, warm, params, n_steps):
     (then the constants of ``params``); ``warm`` None or (F (12N, B), [s | z]
     (48N, B), schedule (4N, B)). ``params`` is an :class:`MpcParams` (see
     :func:`mpc_params`). Returns (F (12N, B), diag (6, B), [s | z | F] (60N,
-    B) or None). The kernel's scratch, (324 N, B), is allocated here."""
+    B) or None). The kernel's scratch, 324 N words per robot slot of the
+    grid, is allocated here; the launch takes :func:`mpc_launch_geometry`."""
     N = int(n_steps)
     if params.n_steps != N:
         raise ValueError(f"params are for N = {params.n_steps}, not {N}")
@@ -517,11 +567,13 @@ def mpc_riccati(block, yaw, phys, warm, params, n_steps):
                               (12 * N, 48 * N, 4 * N)):
             _require_cuda(name, a, k, B, device)
     lib = load()
+    geo = mpc_launch_geometry(B, mpc_layout())
     F = torch.empty((12 * N, B), dtype=torch.float32, device=device)
     diag = torch.empty((6, B), dtype=torch.float32, device=device)
     wout = (None if warm is None else
             torch.empty((60 * N, B), dtype=torch.float32, device=device))
-    scratch = torch.empty((MPC_WORDS_PER_STEP * N, B), dtype=torch.float32,
+    scratch = torch.empty((geo.blocks * geo.robots_per_block,
+                           MPC_WORDS_PER_STEP * N), dtype=torch.float32,
                           device=device)
     wptr = [None] * 3 if warm is None else [a.data_ptr() for a in warm]
     with torch.cuda.device(device):
@@ -531,10 +583,35 @@ def mpc_riccati(block, yaw, phys, warm, params, n_steps):
             None if phys is None else phys.data_ptr(), *wptr,
             F.data_ptr(), diag.data_ptr(),
             None if wout is None else wout.data_ptr(), scratch.data_ptr(),
-            B, ctypes.byref(params), stream)
+            B, geo.blocks, geo.threads, geo.shared_bytes,
+            ctypes.byref(params), stream)
     _check(lib, rc, "qct_mpc_riccati")
     launch_counts["qct_mpc_riccati"] += 1
     return F, diag, wout
+
+
+@functools.cache
+def mpc_layout() -> MpcLayout:
+    """The built MPC kernel's :class:`MpcLayout`."""
+    lib = load()
+    out = (ctypes.c_int * 3)()
+    _check(lib, lib.qct_mpc_layout(out), "qct_mpc_layout")
+    return MpcLayout(*out)
+
+
+def mpc_occupancy(B):
+    """What the card makes of the MPC kernel's launch for B robots: dict of
+    the build's layout, the geometry, the resident blocks per SM
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) and the registers
+    and local (stack) bytes per thread."""
+    layout = mpc_layout()
+    geo = mpc_launch_geometry(B, layout)
+    lib = load()
+    out = (ctypes.c_int * 3)()
+    _check(lib, lib.qct_mpc_occupancy(geo.threads, geo.shared_bytes, out),
+           "qct_mpc_occupancy")
+    return dict(layout._asdict(), **geo._asdict(), blocks_per_sm=out[0],
+                registers=out[1], local_bytes=out[2])
 
 
 def _dense_problem(Qp, cp, Gp, hp):
