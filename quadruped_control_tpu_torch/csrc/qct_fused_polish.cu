@@ -3,35 +3,53 @@
 //
 // Replaces quadruped_control_tpu/solver/pallas_fused.py::_fused_kernel
 // (launched there by solve_grf_qp_fused_packed) in every mode: full,
-// barrier-only (qct_fused_barrier.cu, the variant without the scratch),
-// polish-only, warm-started barrier, proximal restarts, ff_refine,
-// polish_multi_swap. Schedules are RUNTIME arguments (QctParams): one
-// compiled kernel serves the four schedules of the two-phase path.
+// barrier-only (qct_fused_barrier.cu, the variant without the polish),
+// polish-only, warm-started barrier with the stance-flip reset, proximal
+// restarts, ff_refine on and off, polish_multi_swap. Schedules are RUNTIME
+// arguments (QctParams): one compiled kernel serves every launch of the
+// fused solve, the xla prox solve and the balance tick. The per-QP body is
+// fused_lanes in qct_fused.cuh.
 //
-// What bounds it on this card: OPERATIONS, and in practice their latency.
-// An instance reads 26 words and writes 66; between them it runs ~3e3
-// float32 operations per barrier iteration and ~4e4 per polish sweep (the
-// 36x36 LDL^T is ~1.6e4 multiply-subtracts), all in one dependent chain per
-// thread with no tensor-core work in it. What the design does about it: one
-// instance per thread so that no instruction waits on another thread;
-// structure-of-arrays inputs so the few global accesses coalesce; the
-// polish scratch (666 + 36 + 36 words) in PER-THREAD LOCAL arrays, which
-// the hardware interleaves by thread (coalesced, L1-resident for a 64-thread
-// block) at the cost of ~10 KB of local memory a thread and low occupancy;
-// certified lanes leave the sweep loop early. Not done yet (later work): FMA
-// outside the compensated code (the library is built with -fmad=false so
-// that it follows the plain PyTorch version operation for operation),
-// register-resident unrolled Cholesky, more than one thread per instance.
+// What bounds it on this card: OPERATIONS, and in practice their latency
+// and the instruction rate. A QP reads 26 words (+ 64 warm) and writes 66; between them it
+// runs ~3e3 float32 operations per barrier iteration and ~1.6e4 to ~5e4 per
+// polish sweep (the 36 x 36 LDL^T, five triangular solves, the error-free
+// residuals), in chains that are sequential along the factorizations'
+// pivots and the triangular solves. What the design does about it: a group
+// of QF_G = 16 lanes per QP (two QPs per warp, eight per 128-thread block,
+// 32 per SM in one wave of 4 blocks at <= 128 registers), each lane owning
+// cone rows, rows of the barrier's 12 x 12 Cholesky (right-looking in
+// registers, columns by shuffle), rows of the LDL^T's trailing triangle
+// (right-looking in shared memory, one sync a pivot) and of the forward
+// solve, so that a QP's chain is that of one row, not of the whole factor.
+// A QP's state (the three problems, the iterates, the KKT factor) lives in
+// shared memory, 1776 words = 7,104 bytes per QP, 56,832 bytes per block.
+// Syncs and shuffles name the whole warp; the barrier and the polish each
+// appear once in the code (the prox restarts run through the same path), so
+// that the loops stay within the instruction cache. The launch geometry
+// comes from kernels.fused_launch_geometry, made from the build's layout
+// (qct_fused_layout).
+#include "qct_fused.cuh"
 #include "qct_launch.cuh"
 
-__global__ void qct_fused_polish_kernel(QctIO io, int B, QctParams p) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= B) return;  // ragged edge
-  fused_instance<true>(io, B, i, p);
+__global__ void __launch_bounds__(QF_MAX_THREADS, QF_MIN_BLOCKS)
+    qct_fused_polish_kernel(QctIO io, int B, QctParams p) {
+  extern __shared__ float4 qf_shared[];  // 16-byte aligned
+  const int grp = threadIdx.x / QF_G;
+  QFLane g;
+  g.lane = threadIdx.x % QF_G;
+  QFShared* W = reinterpret_cast<QFShared*>(qf_shared) + grp;
+  fused_lanes<true>(io, B, blockIdx.x * (blockDim.x / QF_G) + grp, p, *W,
+                    g);
 }
 
-extern "C" int qct_fused_barrier_launch(QctIO io, int B, const QctParams* p,
-                                        void* stream);
+extern "C" const void* qct_fused_polish_fn() {
+  return (const void*)qct_fused_polish_kernel;
+}
+
+extern "C" int qct_fused_barrier_launch(QctIO io, int B, int blocks,
+                                        int threads, int shared_bytes,
+                                        const QctParams* p, void* stream);
 
 extern "C" int qct_fused_solve(const float* r, const float* b,
                                const float* st, const float* mu,
@@ -39,13 +57,30 @@ extern "C" int qct_fused_solve(const float* r, const float* b,
                                const float* xw, const float* sw,
                                const float* zw, const float* stprev, float* x,
                                float* s, float* z, float* diag, int* work,
-                               int B, const QctParams* params, void* stream) {
+                               int B, int blocks, int threads,
+                               int shared_bytes, const QctParams* params,
+                               void* stream) {
   if (B <= 0) return 0;
+  const int qps = threads / QF_G;
+  if (threads <= 0 || threads % 32 != 0 || threads > QF_MAX_THREADS ||
+      shared_bytes < qps * (int)sizeof(QFShared) ||
+      (long long)blocks * qps < (long long)B)
+    return (int)cudaErrorInvalidValue;
   QctIO io = {r, b, st, mu, fzmin, fzmax, xw, sw, zw, stprev, x, s, z, diag,
               work};
-  if (!params->polish) return qct_fused_barrier_launch(io, B, params, stream);
-  const int block = qct_block_size(B);
-  qct_fused_polish_kernel<<<(B + block - 1) / block, block, 0,
+  if (!params->polish)
+    return qct_fused_barrier_launch(io, B, blocks, threads, shared_bytes,
+                                    params, stream);
+  const cudaError_t e = qct_allow_shared(qct_fused_polish_fn(), shared_bytes);
+  if (e != cudaSuccess) return (int)e;
+  qct_fused_polish_kernel<<<blocks, threads, shared_bytes,
                             (cudaStream_t)stream>>>(io, B, *params);
   return (int)cudaGetLastError();
+}
+
+// out = [lanes per QP, threads a block at most, shared words per QP] of this
+// build: what kernels.fused_launch_geometry makes the launch from.
+extern "C" int qct_fused_layout(int* out) {
+  qf_layout(out);
+  return 0;
 }

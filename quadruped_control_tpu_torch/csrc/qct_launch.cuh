@@ -5,8 +5,15 @@
 
 #include "qct_common.cuh"
 
-// One QP per thread. 64 threads a block keeps the per-thread local arrays
-// (up to ~10 KB with the polish scratch) within reach of L1, and small
-// batches (the compacted tail slices) drop to one warp a block so that they
+// One instance per thread (K2, K3a, K3b). 64 threads a block keeps the
+// per-thread local arrays (up to ~10 KB with K3b's polish scratch) within
+// reach of L1, and small batches drop to one warp a block so that they
 // spread over more SMs.
 static inline int qct_block_size(int B) { return B >= 132 * 64 ? 64 : 32; }
+
+// Lets a kernel take more than 48 KB of dynamic shared memory a block.
+static inline cudaError_t qct_allow_shared(const void* fn, int shared_bytes) {
+  if (shared_bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              shared_bytes);
+}

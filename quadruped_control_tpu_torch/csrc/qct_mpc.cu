@@ -61,12 +61,9 @@ extern "C" int qct_mpc_riccati(const float* block, const float* yaw,
       shared_bytes < robots * (int)sizeof(QMpcShared) ||
       (long long)blocks * robots < (long long)B)
     return (int)cudaErrorInvalidValue;
-  if (shared_bytes > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        qct_mpc_riccati_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        shared_bytes);
-    if (e != cudaSuccess) return (int)e;
-  }
+  const cudaError_t e =
+      qct_allow_shared((const void*)qct_mpc_riccati_kernel, shared_bytes);
+  if (e != cudaSuccess) return (int)e;
   QctMpcIO io = {block, yaw,  phys, warm_F,   warm_sz,
                  warm_sched, F, diag, warm_out, scratch};
   qct_mpc_riccati_kernel<<<blocks, threads, shared_bytes,
@@ -81,15 +78,24 @@ extern "C" int qct_mpc_layout(int* out) {
   return 0;
 }
 
-// out = [resident blocks per SM at this geometry, registers per thread,
-// local (stack) bytes per thread].
-extern "C" int qct_mpc_occupancy(int threads, int shared_bytes, int* out) {
+extern "C" const void* qct_mpc_fn() {
+  return (const void*)qct_mpc_riccati_kernel;
+}
+
+// What the card makes of a launch of the kernel fn (qct_mpc_fn,
+// qct_fused_barrier_fn, qct_fused_polish_fn) with blocks of `threads`
+// threads and `shared_bytes` of dynamic shared memory: out = [resident
+// blocks per SM, registers per thread, local (stack) bytes per thread].
+extern "C" int qct_occupancy(const void* fn, int threads, int shared_bytes,
+                             int* out) {
+  cudaError_t e = qct_allow_shared(fn, shared_bytes);
+  if (e != cudaSuccess) return (int)e;
   int blocks = 0;
-  cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, qct_mpc_riccati_kernel, threads, shared_bytes);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, threads,
+                                                    shared_bytes);
   if (e != cudaSuccess) return (int)e;
   cudaFuncAttributes fa;
-  e = cudaFuncGetAttributes(&fa, qct_mpc_riccati_kernel);
+  e = cudaFuncGetAttributes(&fa, fn);
   if (e != cudaSuccess) return (int)e;
   out[0] = blocks;
   out[1] = fa.numRegs;

@@ -192,6 +192,42 @@ def mpc_launch_geometry(B: int, layout: MpcLayout) -> MpcGeometry:
                        MPC_ROBOTS_PER_BLOCK, shared)
 
 
+class FusedLayout(NamedTuple):
+    """What a build of the fused kernel reports (csrc/qct_fused.cuh
+    ``qf_layout``): lanes per QP, threads a block at most (its
+    ``__launch_bounds__``), words of shared memory per QP."""
+
+    lanes: int
+    max_threads: int
+    shared_words: int
+
+
+class FusedGeometry(NamedTuple):
+    """Launch of the fused kernel: QP slot ``blockIdx.x * qps_per_block +
+    threadIdx.x // lanes`` (slots past B run along and write no output)."""
+
+    blocks: int
+    threads: int
+    qps_per_block: int
+    shared_bytes: int
+
+
+def fused_launch_geometry(B: int, layout: FusedLayout) -> FusedGeometry:
+    """The fused kernel's launch for B QPs: blocks of the build's full
+    thread count, ``layout.lanes`` threads and ``layout.shared_words`` of
+    shared memory per QP. Raises where such a block does not fit a Hopper
+    block's shared memory or is not made of whole warps."""
+    qps = layout.max_threads // layout.lanes
+    threads = qps * layout.lanes
+    shared = qps * layout.shared_words * 4
+    if qps < 1 or threads % 32 != 0 or shared > SHARED_BYTES_MAX:
+        raise ValueError(
+            f"{qps} QPs a block of {threads} threads need {shared} bytes of "
+            f"shared memory; a block has {SHARED_BYTES_MAX} bytes and whole "
+            f"warps")
+    return FusedGeometry(-(-B // qps), threads, qps, shared)
+
+
 def _fill(struct, values: dict):
     """Copy Python floats / sequences / arrays into a ctypes struct (each
     value is rounded to the field's type by ctypes)."""
@@ -326,7 +362,7 @@ def load():
             lib = ctypes.CDLL(str(build()))
             vp, ci = ctypes.c_void_p, ctypes.c_int
             lib.qct_fused_solve.argtypes = [vp] * 15 + [
-                ci, ctypes.POINTER(FusedParams), vp]
+                ci, ci, ci, ci, ctypes.POINTER(FusedParams), vp]
             lib.qct_fused_solve.restype = ci
             lib.qct_assemble.argtypes = [vp] * 10 + [
                 ci, ctypes.POINTER(FusedParams), vp]
@@ -342,8 +378,14 @@ def load():
             lib.qct_mpc_riccati.restype = ci
             lib.qct_mpc_layout.argtypes = [vp]
             lib.qct_mpc_layout.restype = ci
-            lib.qct_mpc_occupancy.argtypes = [ci, ci, vp]
-            lib.qct_mpc_occupancy.restype = ci
+            lib.qct_fused_layout.argtypes = [vp]
+            lib.qct_fused_layout.restype = ci
+            for fn in ("qct_mpc_fn", "qct_fused_barrier_fn",
+                       "qct_fused_polish_fn"):
+                getattr(lib, fn).argtypes = []
+                getattr(lib, fn).restype = vp
+            lib.qct_occupancy.argtypes = [vp, ci, ci, vp]
+            lib.qct_occupancy.restype = ci
             lib.qct_dense_barrier.argtypes = [vp] * 7 + [
                 ci, ci, ctypes.c_float, vp]
             lib.qct_dense_barrier.restype = ci
@@ -396,7 +438,8 @@ def fused_solve(rp, bp, stp, mup, fminp, fmaxp, warm, sched, work=None):
 
     ``work``: optional int32 ``(2, B)`` CUDA tensor the kernel fills with
     the barrier iterations and the polish sweeps each instance ran (a
-    certified lane leaves the sweep loop early) — for operation counts."""
+    certified QP stops sweeping early) — for operation counts. The launch
+    takes :func:`fused_launch_geometry` (a group of lanes per QP)."""
     device = rp.device
     B = rp.shape[1]
     for name, a, k in (("rp", rp, 12), ("bp", bp, 6), ("stp", stp, 4),
@@ -426,6 +469,7 @@ def fused_solve(rp, bp, stp, mup, fminp, fmaxp, warm, sched, work=None):
     z = torch.empty((24, B), dtype=torch.float32, device=device)
     diag = torch.empty((6, B), dtype=torch.float32, device=device)
     wptr = [a.data_ptr() for a in warm] + [None] * (4 - len(warm))
+    geo = fused_launch_geometry(B, fused_layout())
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.qct_fused_solve(
@@ -433,7 +477,8 @@ def fused_solve(rp, bp, stp, mup, fminp, fmaxp, warm, sched, work=None):
             fminp.data_ptr(), fmaxp.data_ptr(), *wptr,
             x.data_ptr(), s.data_ptr(), z.data_ptr(), diag.data_ptr(),
             None if work is None else work.data_ptr(),
-            B, ctypes.byref(p), stream)
+            B, geo.blocks, geo.threads, geo.shared_bytes, ctypes.byref(p),
+            stream)
     _check(lib, rc, "qct_fused_solve")
     launch_counts["qct_fused_solve"] += 1
     return x, s, z, diag
@@ -599,19 +644,46 @@ def mpc_layout() -> MpcLayout:
     return MpcLayout(*out)
 
 
-def mpc_occupancy(B):
-    """What the card makes of the MPC kernel's launch for B robots: dict of
-    the build's layout, the geometry, the resident blocks per SM
-    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) and the registers
-    and local (stack) bytes per thread."""
-    layout = mpc_layout()
-    geo = mpc_launch_geometry(B, layout)
+def _occupancy(fn, threads, shared_bytes):
+    """[resident blocks per SM, registers per thread, local (stack) bytes
+    per thread] of the kernel ``fn`` (a ``qct_*_fn`` entry of the library)
+    at this block (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
     lib = load()
     out = (ctypes.c_int * 3)()
-    _check(lib, lib.qct_mpc_occupancy(geo.threads, geo.shared_bytes, out),
-           "qct_mpc_occupancy")
-    return dict(layout._asdict(), **geo._asdict(), blocks_per_sm=out[0],
-                registers=out[1], local_bytes=out[2])
+    _check(lib, lib.qct_occupancy(getattr(lib, fn)(), threads, shared_bytes,
+                                  out), "qct_occupancy")
+    return dict(blocks_per_sm=out[0], registers=out[1], local_bytes=out[2])
+
+
+def mpc_occupancy(B):
+    """What the card makes of the MPC kernel's launch for B robots: dict of
+    the build's layout, the geometry, the resident blocks per SM and the
+    registers and local (stack) bytes per thread."""
+    layout = mpc_layout()
+    geo = mpc_launch_geometry(B, layout)
+    return dict(layout._asdict(), **geo._asdict(),
+                **_occupancy("qct_mpc_fn", geo.threads, geo.shared_bytes))
+
+
+@functools.cache
+def fused_layout() -> FusedLayout:
+    """The built fused kernel's :class:`FusedLayout`."""
+    lib = load()
+    out = (ctypes.c_int * 3)()
+    _check(lib, lib.qct_fused_layout(out), "qct_fused_layout")
+    return FusedLayout(*out)
+
+
+def fused_occupancy(B, polish=True):
+    """What the card makes of the fused kernel's launch for B QPs (the
+    polish variant, or the barrier-only one): dict of the build's layout,
+    the geometry, the resident blocks per SM and the registers and local
+    (stack) bytes per thread."""
+    layout = fused_layout()
+    geo = fused_launch_geometry(B, layout)
+    fn = "qct_fused_polish_fn" if polish else "qct_fused_barrier_fn"
+    return dict(layout._asdict(), **geo._asdict(),
+                **_occupancy(fn, geo.threads, geo.shared_bytes))
 
 
 def _dense_problem(Qp, cp, Gp, hp):

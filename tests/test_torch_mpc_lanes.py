@@ -7,8 +7,8 @@ lanes meet at a sync. A lane that reads what another lane writes, with no
 sync between the two, would make the result depend on the lanes' timing.
 The serial host build (tests/torch_port_host_shim.cpp) runs the lanes of a
 section one after the other; built with the lanes ascending and descending
-(-DQMPC_REVERSE_LANES) it must give the same bits, which holds a read across
-lanes inside one section. The lane-program build (-DQMPC_LANE_PROGRAM) runs
+(-DQCT_REVERSE_LANES) it must give the same bits, which holds a read across
+lanes inside one section. The lane-program build (-DQCT_LANE_PROGRAM) runs
 a warp's 32 lanes as the card does, each from sync to sync on its own, in
 both orders: a missing sync shows there too, and so do lanes that do not
 wait at the same sync. The launch geometry (kernels.mpc_launch_geometry) is
@@ -35,9 +35,9 @@ ROOT = Path(__file__).resolve().parent.parent
 CSRC = ROOT / "quadruped_control_tpu_torch" / "csrc"
 CFG = mit_cheetah_physical_config()
 # The shim's builds: defines of each.
-BUILDS = {"ascending": (), "reversed": ("QMPC_REVERSE_LANES",),
-          "warp": ("QMPC_LANE_PROGRAM",),
-          "warp_reversed": ("QMPC_LANE_PROGRAM", "QMPC_REVERSE_LANES")}
+BUILDS = {"ascending": (), "reversed": ("QCT_REVERSE_LANES",),
+          "warp": ("QCT_LANE_PROGRAM",),
+          "warp_reversed": ("QCT_LANE_PROGRAM", "QCT_REVERSE_LANES")}
 
 
 def _build_cmd(out, defines):
@@ -50,7 +50,7 @@ def _build_cmd(out, defines):
 def _load(out, defines):
     lib = ctypes.CDLL(str(out))
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    warp = "QMPC_LANE_PROGRAM" in defines
+    warp = "QCT_LANE_PROGRAM" in defines
     fn = lib.host_mpc_riccati_warps if warp else lib.host_mpc_riccati
     fn.argtypes = [vp] * 10 + [ci, ctypes.POINTER(kernels.MpcParams)]
     fn.restype = ci if warp else None

@@ -1,41 +1,49 @@
-// Host build of the per-instance bodies of the commander-pre, substep, MPC
-// and dense IPM CUDA kernels (quadruped_control_tpu_torch/csrc/
-// qct_commander.cuh, qct_substep.cuh, qct_mpc.cuh and qct_dense_ipm.cuh),
-// looped over the batch (and K6's lanes over each robot) by a plain C++
-// compiler (-ffp-contract=off), so that the kernels' arithmetic can be held
-// against the plain PyTorch versions on a machine without a CUDA compiler
-// (tests/test_torch_kernel_sources_host.py).
+// Host build of the per-instance bodies of the CUDA kernels (quadruped_
+// control_tpu_torch/csrc/: qct_commander.cuh, qct_substep.cuh, qct_mpc.cuh,
+// qct_dense_ipm.cuh and the fused GRF-QP kernel's qct_fused.cuh), looped
+// over the batch (and the lane-group kernels' lanes over each robot or QP)
+// by a plain C++ compiler (-ffp-contract=off), so that the kernels'
+// arithmetic can be held against the plain PyTorch versions on a machine
+// without a CUDA compiler (tests/test_torch_kernel_sources_host.py,
+// tests/test_torch_mpc_lanes.py, tests/test_torch_fused_lanes.py).
 //
-// Built with -DQMPC_LANE_PROGRAM, K6 runs instead as the card runs it
-// (host_mpc_riccati_warps, tests/test_torch_mpc_lanes.py): the 32 lanes of
-// a warp (two robot slots of QMPC_G lanes) are coroutines, each one call of
-// mpc_instance with its own g.lane, its own lane variables and its robot's
-// shared state. A sync or a shuffle hands over to the next lane, so each
-// lane runs alone from one sync to the next: lane 0 first, or lane 31 first
-// with -DQMPC_REVERSE_LANES. Where a sync is missing, a lane reads another
-// lane's write before it is made in one order and after it in the other;
-// so it does where a lane reads, inside one section, what another lane of
-// that section writes. Either way the two orders give other bits. Lanes
-// that do not wait at the same sync (a sync or a shuffle inside a branch on
-// one robot's data) are an error of their own.
+// Built with -DQCT_LANE_PROGRAM, the two lane-group kernels, K6 (MPC) and K1
+// (fused GRF-QP), run instead as the card runs them (host_mpc_riccati_warps,
+// host_fused_solve_warps): the 32 lanes of a warp (two robot or QP slots of
+// 16 lanes) are coroutines, each one call of the kernel's body with its own
+// g.lane, its own lane variables and its slot's shared state. A sync or a
+// shuffle hands over to the next lane, so each lane runs alone from one sync
+// to the next: lane 0 first, or lane 31 first with -DQCT_REVERSE_LANES.
+// Where a sync is missing, a lane reads another lane's write before it is
+// made in one order and after it in the other; so it does where a lane
+// reads, inside one section, what another lane of that section writes.
+// Either way the two orders give other bits. Lanes that do not wait at the
+// same sync (the syncs of both kernels name the whole warp) are an error of
+// their own.
 #include <string.h>
 
 #include "qct_commander.cuh"
 #include "qct_dense_ipm.cuh"
-#ifdef QMPC_LANE_PROGRAM
+#ifdef QCT_LANE_PROGRAM
 #include <stdlib.h>
 #include <ucontext.h>
 
-static void qmpc_yield(int site);
-static float qmpc_shfl(float v, int src, int site);
-#define QMPC_WARP_SYNC() qmpc_yield(__LINE__)
-#define QMPC_WARP_SHFL(v, src) qmpc_shfl((v), (src), __LINE__)
-#elif defined(QMPC_REVERSE_LANES)
+static void lane_yield(int site);
+static float lane_shfl(float v, int src, int width, int site);
+static bool lane_all(bool pred, int site);
+#define QMPC_WARP_SYNC() lane_yield(__LINE__)
+#define QMPC_WARP_SHFL(v, src) lane_shfl((v), (src), QMPC_G, __LINE__)
+#define QF_WARP_SYNC() lane_yield(__LINE__)
+#define QF_WARP_SHFL(v, src) lane_shfl((v), (src), QF_G, __LINE__)
+#define QF_WARP_ALL(pred) lane_all((pred), __LINE__)
+#elif defined(QCT_REVERSE_LANES)
 // The serial build with the lanes of each section run last lane first: a
 // section in which a lane reads what another lane of the same section
 // writes gives other bits in the two orders.
 #define QMPC_HOST_LANES(lane) for (int lane = QMPC_G - 1; lane >= 0; --lane)
+#define QF_HOST_LANES(lane) for (int lane = QF_G - 1; lane >= 0; --lane)
 #endif
+#include "qct_fused.cuh"
 #include "qct_mpc.cuh"
 #include "qct_substep.cuh"
 
@@ -60,7 +68,7 @@ extern "C" void host_substep(const float* state, const float* a,
     substep_instance(io, B, i, n_substeps, h, *params);
 }
 
-#ifndef QMPC_LANE_PROGRAM
+#ifndef QCT_LANE_PROGRAM
 extern "C" void host_mpc_riccati(const float* block, const float* yaw,
                                  const float* phys, const float* warm_F,
                                  const float* warm_sz,
@@ -78,12 +86,102 @@ extern "C" void host_mpc_riccati(const float* block, const float* yaw,
     mpc_instance(io, B, i, *params, S, g);
   }
 }
+
+// K1 over B QPs, the lanes of each section in a loop; shared state starts
+// NaN.
+extern "C" void host_fused_solve(const float* r, const float* b,
+                                 const float* st, const float* mu,
+                                 const float* fzmin, const float* fzmax,
+                                 const float* xw, const float* sw,
+                                 const float* zw, const float* stprev,
+                                 float* x, float* s, float* z, float* diag,
+                                 int* work, int B, const QctParams* params) {
+  QctIO io = {r, b, st, mu, fzmin, fzmax, xw, sw, zw, stprev, x, s, z, diag,
+              work};
+  static QFShared W;
+  const QFLane g = {0};
+  for (int i = 0; i < B; ++i) {
+    memset(&W, 0xff, sizeof(W));
+    if (params->polish)
+      fused_lanes<true>(io, B, i, *params, W, g);
+    else
+      fused_lanes<false>(io, B, i, *params, W, g);
+  }
+}
 #else
-#define QMPC_WARP 32
-static ucontext_t qmpc_main_, qmpc_ctx_[QMPC_WARP];
-static int qmpc_cur_;               // the lane running
-static int qmpc_site_[QMPC_WARP];   // where each lane waits; 0: returned
-static float qmpc_xch_[QMPC_WARP];  // the values a shuffle exchanges
+// A warp's 32 lanes as coroutines: lane_run_warp calls lane_body_(l) for
+// each lane l on a stack of its own and switches lanes at every sync and
+// shuffle, round by round.
+#define LANE_WARP 32
+static ucontext_t lane_main_, lane_ctx_[LANE_WARP];
+static int lane_cur_;               // the lane running
+static int lane_site_[LANE_WARP];   // where each lane waits; 0: returned
+static float lane_xch_[LANE_WARP];  // the values a shuffle exchanges
+static void (*lane_body_)(int lane);
+
+static void lane_yield(int site) {
+  lane_site_[lane_cur_] = site;
+  swapcontext(&lane_ctx_[lane_cur_], &lane_main_);
+}
+
+// Lane src (of the group of `width` lanes) of v.
+static float lane_shfl(float v, int src, int width, int site) {
+  lane_xch_[lane_cur_] = v;
+  lane_yield(site);  // every lane has given its value
+  const float r = lane_xch_[lane_cur_ / width * width + src];
+  lane_yield(-site);  // every lane has taken one
+  return r;
+}
+
+// pred in every lane of the warp.
+static bool lane_all(bool pred, int site) {
+  lane_xch_[lane_cur_] = pred ? 1.0f : 0.0f;
+  lane_yield(site);  // every lane has given its value
+  bool r = true;
+  for (int l = 0; l < LANE_WARP; ++l) r = r && lane_xch_[l] != 0.0f;
+  lane_yield(-site);  // every lane has taken them
+  return r;
+}
+
+static void lane_entry() {
+  const int l = lane_cur_;
+  lane_body_(l);
+  lane_site_[l] = 0;
+}
+
+// Runs lane_body_ on the lanes of one warp to their ends; returns -1 where
+// the lanes did not wait at the same site.
+static int lane_run_warp(void (*body)(int), char* stacks, size_t stack) {
+  lane_body_ = body;
+  for (int l = 0; l < LANE_WARP; ++l) {
+    getcontext(&lane_ctx_[l]);
+    lane_ctx_[l].uc_stack.ss_sp = stacks + l * stack;
+    lane_ctx_[l].uc_stack.ss_size = stack;
+    lane_ctx_[l].uc_link = &lane_main_;
+    makecontext(&lane_ctx_[l], lane_entry, 0);
+    lane_site_[l] = -1;  // not started
+  }
+  for (bool running = true; running;) {
+    for (int k = 0; k < LANE_WARP; ++k) {
+#ifdef QCT_REVERSE_LANES
+      lane_cur_ = LANE_WARP - 1 - k;
+#else
+      lane_cur_ = k;
+#endif
+      if (lane_site_[lane_cur_] != 0)
+        swapcontext(&lane_main_, &lane_ctx_[lane_cur_]);
+    }
+    running = false;
+    for (int l = 0; l < LANE_WARP; ++l) {
+      if (lane_site_[l] != lane_site_[0]) return -1;
+      running = running || lane_site_[l] != 0;
+    }
+  }
+  return 0;
+}
+
+static const size_t lane_stack_ = (size_t)1 << 20;
+
 static struct {
   const QctMpcIO* io;
   int B, slot;  // the warp's first robot slot
@@ -91,26 +189,11 @@ static struct {
   QMpcShared* S;
 } qmpc_warp_;
 
-static void qmpc_yield(int site) {
-  qmpc_site_[qmpc_cur_] = site;
-  swapcontext(&qmpc_ctx_[qmpc_cur_], &qmpc_main_);
-}
-
-static float qmpc_shfl(float v, int src, int site) {
-  qmpc_xch_[qmpc_cur_] = v;
-  qmpc_yield(site);  // every lane has given its value
-  const float r = qmpc_xch_[qmpc_cur_ / QMPC_G * QMPC_G + src];
-  qmpc_yield(-site);  // every lane has taken one
-  return r;
-}
-
-static void qmpc_lane_main() {
-  const int l = qmpc_cur_;
+static void qmpc_lane_main(int l) {
   QMpcLane g;
   g.lane = l % QMPC_G;
   mpc_instance(*qmpc_warp_.io, qmpc_warp_.B, qmpc_warp_.slot + l / QMPC_G,
                *qmpc_warp_.p, qmpc_warp_.S[l / QMPC_G], g);
-  qmpc_site_[l] = 0;
 }
 
 // K6 over B robots, a warp (two robot slots) at a time; scratch holds
@@ -123,37 +206,61 @@ extern "C" int host_mpc_riccati_warps(
     const QctMpcParams* params) {
   QctMpcIO io = {block, yaw,  phys, warm_F,   warm_sz,
                  warm_sched, F, diag, warm_out, scratch};
-  const size_t stack = (size_t)1 << 20;
-  char* stacks = (char*)malloc(QMPC_WARP * stack);
-  QMpcShared S[QMPC_WARP / QMPC_G];
+  char* stacks = (char*)malloc(LANE_WARP * lane_stack_);
+  QMpcShared S[LANE_WARP / QMPC_G];
   int rc = 0;
-  for (int slot = 0; slot < B && rc == 0; slot += QMPC_WARP / QMPC_G) {
+  for (int slot = 0; slot < B && rc == 0; slot += LANE_WARP / QMPC_G) {
     memset(S, 0xff, sizeof(S));  // shared memory starts undefined: NaN
     qmpc_warp_.io = &io;
     qmpc_warp_.B = B;
     qmpc_warp_.slot = slot;
     qmpc_warp_.p = params;
     qmpc_warp_.S = S;
-    for (int l = 0; l < QMPC_WARP; ++l) {
-      getcontext(&qmpc_ctx_[l]);
-      qmpc_ctx_[l].uc_stack.ss_sp = stacks + l * stack;
-      qmpc_ctx_[l].uc_stack.ss_size = stack;
-      qmpc_ctx_[l].uc_link = &qmpc_main_;
-      makecontext(&qmpc_ctx_[l], qmpc_lane_main, 0);
-    }
-    for (bool running = true; running && rc == 0;) {
-      for (int k = 0; k < QMPC_WARP; ++k) {
-#ifdef QMPC_REVERSE_LANES
-        qmpc_cur_ = QMPC_WARP - 1 - k;
-#else
-        qmpc_cur_ = k;
-#endif
-        swapcontext(&qmpc_main_, &qmpc_ctx_[qmpc_cur_]);
-      }
-      for (int l = 1; l < QMPC_WARP; ++l)
-        if (qmpc_site_[l] != qmpc_site_[0]) rc = -1;
-      running = qmpc_site_[0] != 0;
-    }
+    rc = lane_run_warp(qmpc_lane_main, stacks, lane_stack_);
+  }
+  free(stacks);
+  return rc;
+}
+
+static struct {
+  const QctIO* io;
+  int B, slot;  // the warp's first QP slot
+  const QctParams* p;
+  QFShared* W;
+} qf_warp_;
+
+static void qf_lane_main(int l) {
+  QFLane g;
+  g.lane = l % QF_G;
+  const int k = l / QF_G;
+  if (qf_warp_.p->polish)
+    fused_lanes<true>(*qf_warp_.io, qf_warp_.B, qf_warp_.slot + k,
+                      *qf_warp_.p, qf_warp_.W[k], g);
+  else
+    fused_lanes<false>(*qf_warp_.io, qf_warp_.B, qf_warp_.slot + k,
+                       *qf_warp_.p, qf_warp_.W[k], g);
+}
+
+// K1 over B QPs, a warp (two QP slots) at a time. Returns 0, or -1 where
+// the lanes of a warp did not wait at the same sync.
+extern "C" int host_fused_solve_warps(
+    const float* r, const float* b, const float* st, const float* mu,
+    const float* fzmin, const float* fzmax, const float* xw, const float* sw,
+    const float* zw, const float* stprev, float* x, float* s, float* z,
+    float* diag, int* work, int B, const QctParams* params) {
+  QctIO io = {r, b, st, mu, fzmin, fzmax, xw, sw, zw, stprev, x, s, z, diag,
+              work};
+  char* stacks = (char*)malloc(LANE_WARP * lane_stack_);
+  static QFShared W[LANE_WARP / QF_G];
+  int rc = 0;
+  for (int slot = 0; slot < B && rc == 0; slot += LANE_WARP / QF_G) {
+    memset(W, 0xff, sizeof(W));  // shared memory starts undefined: NaN
+    qf_warp_.io = &io;
+    qf_warp_.B = B;
+    qf_warp_.slot = slot;
+    qf_warp_.p = params;
+    qf_warp_.W = W;
+    rc = lane_run_warp(qf_lane_main, stacks, lane_stack_);
   }
   free(stacks);
   return rc;
@@ -161,6 +268,8 @@ extern "C" int host_mpc_riccati_warps(
 #endif
 
 extern "C" void host_mpc_layout(int* out) { qmpc_layout(out); }
+
+extern "C" void host_fused_layout(int* out) { qf_layout(out); }
 
 extern "C" void host_dense_barrier(const float* Q, const float* c,
                                    const float* G, const float* h, float* x,
