@@ -43,7 +43,9 @@ launch beside the bound (K6 also at N = 24).
 Then the fourth main path, the dense QP solve (solver/fused_ipm.py: the
 dense barrier K3a, then the certified polish K3b) at B = 32768: both kernels
 against their plain versions (20 and 3 iterations, the polish on the
-barrier's point, a ragged batch with two poisoned lanes), the split pipeline
+barrier's point, a ragged batch with two poisoned lanes; K3b bitwise, a
+hold, there and on the xla prox stage's slices), K3b's launch geometry,
+resident blocks, registers and stack, the split pipeline
 (grf_scenarios -> assemble_qp_batch -> solve_qp_ipm_fused) with its
 converged fraction, float64 oracle parity and exactly one launch of each
 kernel per solve, and solve_balance_qp_fused with the bench schedule and
@@ -1844,6 +1846,30 @@ def hold_dense_to_plain(name, kern, plain, Q, c, Dv, cert=False):
     return max_abs, bitwise
 
 
+def hold_dense_polish_bitwise(name, kern, plain):
+    """Fail unless K3b's outputs ``kern`` = (x, s, z, cert) equal its plain
+    version's on the same inputs, bit for bit in every value (a NaN equal
+    to any NaN): the same statements in the same order (``-fmad=false``,
+    ``__fmul_rn`` / ``__fadd_rn`` in the Dekker helpers; no square root)."""
+    if not all(same_values(a, b) for a, b in zip(kern, plain)):
+        fail(f"kernel K3b {name} is not bitwise equal to its plain version")
+    log(f"  ok: K3b {name}: bitwise its plain version in every value "
+        f"({kern[3].numel()} QPs)")
+
+
+def dense_geometry(B):
+    """K3b's launch for B QPs as the card makes it (kernels.dense_occupancy),
+    logged: blocks, threads, shared bytes a block, resident blocks per SM,
+    registers and local (stack) bytes per thread."""
+    occ = kernels.dense_occupancy(B)
+    log(f"    K3b launch, B = {B}: {occ['blocks']} blocks of "
+        f"{occ['threads']} threads ({occ['qps_per_block']} QPs x "
+        f"{occ['lanes']} lanes), {occ['shared_bytes']} B of shared memory a "
+        f"block, {occ['blocks_per_sm']} blocks per SM, {occ['registers']} "
+        f"registers and {occ['local_bytes']} B of stack a thread")
+    return occ
+
+
 def phase_dense_vs_plain(cfg, gen):
     log(f"== phase 13: K3a (dense barrier) and K3b (dense polish) vs their "
         f"plain versions on the card, B = {B_MAIN}")
@@ -1865,6 +1891,7 @@ def phase_dense_vs_plain(cfg, gen):
     torch.cuda.synchronize()
     err, bitwise["K3b"] = hold_dense_to_plain("K3b on K3a's point", kp, pp,
                                               qp.Q, qp.c, Dv, cert=True)
+    hold_dense_polish_bitwise(f"on K3a's point, B = {B_MAIN}", kp, pp)
     worst["qct_dense_polish"] = err
     log(f"  K3b certified {kp[3].mean().item():.5f} of the lanes")
 
@@ -1876,7 +1903,7 @@ def phase_dense_vs_plain(cfg, gen):
     kb = kernels.dense_barrier(*sub, iterations=DENSE_ITERS, tau=0.995)
     pb = fi._dense_barrier_plain(*sub, iterations=DENSE_ITERS, tau=0.995)
     kq = kernels.dense_polish(*sub, *kb)
-    pq = fi._dense_polish_plain(*sub, *pb)
+    pq = fi._dense_polish_plain(*sub, *kb)   # K3b's inputs: K3a's point
     torch.cuda.synchronize()
     keep = torch.ones(Br, dtype=torch.bool, device=DEV)
     keep[[5, 1000]] = False
@@ -1891,9 +1918,12 @@ def phase_dense_vs_plain(cfg, gen):
               for a, b in zip(kb + kq, bar + kp)),
           "ragged launch: every unpoisoned lane is bitwise its lane of the "
           "full batch's launches")
+    hold_dense_polish_bitwise(f"ragged B = {Br}, two poisoned lanes, every "
+                              f"lane", kq, pq)
     check(float(kq[3][5]) == 0.0 and float(kq[3][1000]) == 0.0,
           "the poisoned lanes are not certified")
-    return dict(worst=worst, bitwise=bitwise)
+    geometry = {str(b): dense_geometry(b) for b in (B_MAIN, 1024, Br)}
+    return dict(worst=worst, bitwise=bitwise, geometry=geometry)
 
 
 def phase_split_pipeline(cfg, gen):
@@ -1968,6 +1998,13 @@ def phase_split_pipeline(cfg, gen):
     ms_a = per_launch(lambda r: kernels.dense_barrier(
         *probs_k[r], iterations=DENSE_ITERS, tau=0.995))
     ms_b = per_launch(lambda r: kernels.dense_polish(*probs_k[r], *bars[r]))
+    # K3b on the xla prox stage's slice size (1024 QPs: 128 blocks on 132
+    # SMs, one block each).
+    n_s = 1024
+    probs_s = [[a[:, :n_s].contiguous() for a in pr] for pr in probs_k]
+    bars_s = [[a[:, :n_s].contiguous() for a in b_] for b_ in bars]
+    ms_b_s = per_launch(lambda r: kernels.dense_polish(*probs_s[r],
+                                                       *bars_s[r]))
     t0h = time.time()
     fi._dense_barrier_plain(*probs_k[0], iterations=DENSE_ITERS, tau=0.995)
     torch.cuda.synchronize()
@@ -1987,13 +2024,16 @@ def phase_split_pipeline(cfg, gen):
         f"{b_b:.5f} ms, {by_b}; {sweeps / B_MAIN:.3f} sweeps per instance "
         f"run); the two launches sum to {ms_a + ms_b:.4f} of the "
         f"{ms:.4f} ms solve")
+    log(f"  K3b at B = {n_s} (the xla prox slice): {ms_b_s:.4f} ms per "
+        f"launch")
     return dict(
         ms_per_solve=ms, qps=B_MAIN / ms * 1e3, converged=conv,
         launches=counts, oracle_median=float(np.median(rel)),
         k3a=dict(ms=ms_a, plain_ms=plain_a, bound_ms=b_a, bound_by=by_a,
                  operations=ops_a),
         k3b=dict(ms=ms_b, plain_ms=plain_b, bound_ms=b_b, bound_by=by_b,
-                 operations=ops_b, mean_sweeps_run=sweeps / B_MAIN))
+                 operations=ops_b, mean_sweeps_run=sweeps / B_MAIN,
+                 ms_b1024=ms_b_s))
 
 
 def phase_prox_xla(cfg, gen, main_res):
@@ -2038,6 +2078,28 @@ def phase_prox_xla(cfg, gen, main_res):
           and counts["qct_dense_polish"] == steps * REPS,
           f"per solve: phase 4b's 4 K1 launches minus the prox launch, plus "
           f"{steps} x (K3a + K3b) on the {Bt}-instance slice")
+
+    # K3b on the prox slices of one more solve (after the counts were read;
+    # these launches are not the run's): each launch's inputs and outputs
+    # recorded, each held bitwise to the plain version on those inputs.
+    launches = []
+    launch_k3b = kernels.dense_polish
+
+    def recorded(*args):
+        out = launch_k3b(*args)
+        launches.append((args, out))
+        return out
+
+    kernels.dense_polish = recorded
+    try:
+        solve(scen[0])
+    finally:
+        kernels.dense_polish = launch_k3b
+    check(len(launches) == steps, f"{steps} K3b launches in a solve")
+    for k, (args, out) in enumerate(launches):
+        hold_dense_polish_bitwise(f"prox restart {k + 1} of {steps}, slice "
+                                  f"of {Bt}", out,
+                                  fi._dense_polish_plain(*args))
 
     s0, sol0 = scen[0], sols[0]
     Q, c, G, h = pf.assemble_qp_fused_debug(
@@ -2178,6 +2240,8 @@ def main():
                      f"dense solve; prox xla: {xla['slice']} instances, 6 "
                      f"per solve",
             "bitwise": dense_chk["bitwise"]})
+    dense_entries[1].update(ms_b1024=split["k3b"]["ms_b1024"],
+                            geometry=dense_chk["geometry"])
     for entry in (k1, k4_entry, k5_entry, k6_entry, *dense_entries):
         if entry["launches"] <= 0:
             fail(f"{entry['name']} was launched no time on its main path")

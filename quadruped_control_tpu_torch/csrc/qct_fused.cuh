@@ -12,44 +12,14 @@
 // version statement for statement, so the kernel is bitwise equal to it
 // (with a correctly rounded reciprocal square root on the PyTorch side).
 //
-// Lanes. Code outside a lane section is QP-uniform: every lane of the group
-// runs it on the same values and takes the same branch (the sums in element
-// order, the barrier's 12 x 12 triangular solves in registers). A lane
-// section (QF_LANES) runs its body in each lane for the elements that lane
-// owns: cone rows r = lane + 16 m, rows of the barrier's 12 x 12 matrix
-// (lane i < 12), KKT rows (qf_kkt_row: counted from the last in a snake, so
-// that the LDL^T's trailing triangle spreads evenly at every pivot), entries
-// of Q. QF_PHASE is a lane section followed by a sync. Lane variables
-// (QF_LANE_VAR) carry a lane's registers from one section to the next: its
-// row of the 12 x 12 Cholesky and its rows of the polish's forward solve,
-// whose steps exchange pivots by shuffle (QF_SHFL_LV) with no sync. The
-// polish's backward sweep, a chain that no order-keeping split shortens,
-// runs in lane 0.
-//
-// Rules that keep the bits: a lane never reads what another lane wrote since
-// the last sync; uniform code writes no memory and reads only what no lane
-// writes before the next sync; a sum over elements is formed by uniform code
-// in element order; a maximum or minimum is reduced across lanes with qmax
-// / qmin (exact, NaN kept), by a butterfly of shuffles (QF_REDUCE) or
-// through per-lane partials in shared memory (a sign of zero that the order
-// could flip only reaches comparisons); the
-// swap rule's argmax / argmin combines the lanes' first winners by value
-// and lowest index (strict comparisons, a NaN row never wins, index 0 when
-// every row loses). The right-looking factorizations subtract from each
-// entry the same terms, in the same order, as the left-looking loops did. A
-// division runs qdiv's branch-free fast path where it is the IEEE quotient
-// and "/" elsewhere (qf_div). tests/test_torch_fused_lanes.py runs the lanes
-// in both orders and as the card's coroutines; a missing sync or a read
-// across lanes in one section changes bits there.
-//
-// Divergence. The syncs and shuffles name the whole warp (full-mask
-// __syncwarp / __shfl_sync, which compile to plain instructions, where a
-// mask of one group's half needs a collective sequence around each), so the
-// two QPs of a warp meet at every sync: no sync or shuffle sits in a branch
-// on one QP's data. Where a QP is done before its warp-mate (it certified
-// in the polish's sweep loop), it runs along, writing nothing that is read
-// later, until both are done (QF_WARP_ALL); a QP slot past the batch runs
-// along on the last QP's inputs and writes nothing.
+// Lanes (qct_lanes.cuh has the machinery and the rules that keep the bits).
+// A lane owns cone rows r = lane + 16 m, rows of the barrier's 12 x 12
+// matrix (lane i < 12), KKT rows (qf_kkt_row), entries of Q. Lane variables
+// carry a lane's row of the 12 x 12 Cholesky and its rows of the polish's
+// forward solve. The polish's backward sweep, a chain that no order-keeping
+// split shortens, runs in lane 0. A QP certified before its warp-mate in the
+// polish's sweep loop runs along (QF_WARP_ALL); a QP slot past the batch
+// runs along on the last QP's inputs and writes nothing.
 //
 // Memory. Everything a QP keeps between sections sits in shared memory, one
 // QFShared per QP, 1776 words (the problems P, S and the prox step's, the
@@ -60,79 +30,12 @@
 //
 // NaN. Every max/min goes through qmax/qmin, which propagate NaN as
 // torch.maximum does; a poisoned QP stays poisoned in its own group.
-//
-// Host build (QCT_DEV = static inline): a lane section is a loop of the
-// lanes over its body, in the order QF_HOST_LANES gives (ascending unless
-// the includer defines it otherwise), a lane variable an array over the
-// lanes, a shuffle a read of another lane's entry, a warp vote the QP's
-// own predicate, and the syncs are empty. An includer that defines
-// QF_WARP_SYNC(), QF_WARP_SHFL(v, src) and QF_WARP_ALL(pred) gets the card's
-// form instead (one lane per call of fused_lanes, g.lane): the test shim
-// runs a warp's lanes as coroutines.
 #pragma once
 
-#include "qct_common.cuh"
+#include "qct_lanes.cuh"
 
-#define QF_G 16            // lanes per QP
 #define QF_MAX_THREADS 128  // __launch_bounds__ of the kernels
 #define QF_MIN_BLOCKS 4     // ... and their blocks per SM (<= 128 registers)
-
-// A thread's place in its group: its lane.
-struct QFLane {
-  int lane;
-};
-
-#ifdef __CUDACC__
-#define QF_WARP_SYNC() __syncwarp()
-#define QF_WARP_SHFL(v, src) __shfl_sync(0xffffffffu, (v), (src), QF_G)
-#define QF_WARP_ALL(pred) __all_sync(0xffffffffu, (pred))
-#endif
-#ifdef QF_WARP_SYNC
-#define QF_LANES(lane) \
-  for (int lane = g.lane, qf_once_ = 1; qf_once_; qf_once_ = 0)
-#define QF_SYNC() QF_WARP_SYNC()
-#define QF_PHASE(lane)                              \
-  for (int lane = g.lane, qf_once_ = 1; qf_once_; \
-       qf_once_ = 0, QF_WARP_SYNC())
-#define QF_LANE_VAR(type, name, n) type name[n]
-#define QF_LV(name) name
-// Lane src's QF_LV(name)[idx], read by every lane of the group (all 32
-// lanes of the warp must run it together). Inside a section, the value read
-// must not be written in that section. QF_WARP_ALL(pred): pred holds in
-// every lane of the warp (in the serial host form: of this QP).
-#define QF_SHFL_LV(name, idx, src) QF_WARP_SHFL(name[idx], (src))
-// The same for a runtime idx < 3.
-#define QF_SHFL_LV3(name, idx, src) QF_WARP_SHFL(qf_pick<3>(name, idx), (src))
-// out = op over the lanes of QF_LV(name)[idx], op exact and free of order
-// (qmin, qmax): a butterfly of shuffles, every lane getting the same value
-// where no two lanes hold zeros of opposite signs. Uniform code only.
-#define QF_REDUCE(out, name, idx, op)                        \
-  do {                                                       \
-    float v_ = name[idx];                                    \
-    for (int o_ = QF_G / 2; o_ > 0; o_ >>= 1)                \
-      v_ = op(v_, QF_WARP_SHFL(v_, g.lane ^ o_));            \
-    (out) = v_;                                              \
-  } while (0)
-#else
-#ifndef QF_HOST_LANES
-#define QF_HOST_LANES(lane) for (int lane = 0; lane < QF_G; ++lane)
-#endif
-#define QF_LANES(lane) QF_HOST_LANES(lane)
-#define QF_SYNC() ((void)0)
-#define QF_WARP_ALL(pred) (pred)
-#define QF_PHASE(lane) QF_HOST_LANES(lane)
-#define QF_LANE_VAR(type, name, n) type name##_lanes_[QF_G][n]
-#define QF_LV(name) name##_lanes_[lane]
-#define QF_SHFL_LV(name, idx, src) (name##_lanes_[(src)][idx])
-#define QF_SHFL_LV3(name, idx, src) (name##_lanes_[(src)][idx])
-#define QF_REDUCE(out, name, idx, op)                        \
-  do {                                                       \
-    float v_ = name##_lanes_[0][idx];                        \
-    for (int l_ = 1; l_ < QF_G; ++l_)                        \
-      v_ = op(v_, name##_lanes_[l_][idx]);                   \
-    (out) = v_;                                              \
-  } while (0)
-#endif
 
 // The barrier's scratch.
 struct QFBarrierScratch {
@@ -181,41 +84,6 @@ static inline void qf_layout(int* out) {
   out[0] = QF_G;
   out[1] = QF_MAX_THREADS;
   out[2] = (int)(sizeof(QFShared) / sizeof(float));
-}
-
-// Start of column j of a packed lower triangle of order 36 stored by
-// columns: entry (i, j), i >= j, at qf_col(j) + i - j.
-QCT_DEV int qf_col(int j) { return j * QNK - (j * (j - 1)) / 2; }
-
-// The KKT rows of a lane, its slot m = 0, 1, 2: 35 - lane, 4 + lane and, for
-// lanes 0-3, 3 - lane (-1: none). Counted from the last row in a snake, so
-// that the rows of the LDL^T's trailing triangle spread evenly at every
-// pivot.
-QCT_DEV int qf_kkt_row(int lane, int m) {
-  return m == 0 ? QNK - 1 - lane : (m == 1 ? 4 + lane : (lane < 4 ? 3 - lane : -1));
-}
-// The lane and slot of KKT row k.
-QCT_DEV int qf_kkt_owner(int k) {
-  return k >= 20 ? QNK - 1 - k : (k >= 4 ? k - 4 : 3 - k);
-}
-QCT_DEV int qf_kkt_slot(int k) { return k >= 20 ? 0 : (k >= 4 ? 1 : 2); }
-
-// a / b, the IEEE quotient: qdiv's branch-free fast path, "/" where it is
-// out of its range.
-QCT_DEV float qf_div(float a, float b) {
-  bool ok = true;
-  float q = qdiv(a, b, ok);
-  if (!ok) q = a / b;
-  return q;
-}
-
-// v[k] for a runtime k of a register array (selects, no local memory).
-template <int n>
-QCT_DEV float qf_pick(const float* v, int k) {
-  float r = v[0];
-#pragma unroll
-  for (int j = 1; j < n; ++j) r = k == j ? v[j] : r;
-  return r;
 }
 
 // (G x)_r with x a register array.
@@ -748,139 +616,18 @@ QCT_DEV float qf_polish(QFShared& W, const QctProb& S, int sweeps, int refine,
         }
       }
     }
-    // LDL^T, right-looking in shared memory: at pivot k each lane takes
-    // D_k = K[k][k] (final: every earlier pivot has subtracted its term),
-    // subtracts (L_ik D_k) L_jk from the entries (i, j), k < j < i, of its
-    // rows and (L_ik L_ik) D_k from their diagonals, with L_ik = K[i][k] /
-    // D_k formed as the left-looking loop formed it, and stores column k - 1
-    // scaled (nothing reads it at pivot k).
-    float dinv_prev = 0.0f;
-    for (int k = 0; k < QNK; ++k) {
-      const int ck = qf_col(k);
-      const float kk = T.K[ck];
-      const float dd = fabsf(kk) > 1e-30f ? kk : qnan();
-      const float dinv = qf_div(1.0f, dd);
-      QF_PHASE(lane) {
-        if (lane == 0) T.D[k] = dd;
-        if (k > 0) {
-          const int cp = qf_col(k - 1) - (k - 1);
-          for (int i = k + lane; i < QNK; i += QF_G)
-            T.K[cp + i] = T.K[cp + i] * dinv_prev;
-        }
-        for (int m = 0; m < 3; ++m) {
-          const int i = qf_kkt_row(lane, m);
-          if (i <= k) continue;
-          const float lik = T.K[ck + i - k] * dinv;
-          const float likd = lik * dd;
-          // Entry (i, j) at e = qf_col(j) + i - j; e(j + 1) = e(j) + 35 - j.
-          int j = k + 1, e = qf_col(j) + i - j;
-          for (; j + 4 <= i; j += 4) {
-            const int e1 = e + QNK - 1 - j, e2 = e1 + QNK - 2 - j,
-                      e3 = e2 + QNK - 3 - j;
-            const float c0 = T.K[ck + j - k], c1 = T.K[ck + j + 1 - k],
-                        c2 = T.K[ck + j + 2 - k], c3 = T.K[ck + j + 3 - k];
-            const float v0 = T.K[e], v1 = T.K[e1], v2 = T.K[e2], v3 = T.K[e3];
-            T.K[e] = v0 - likd * (c0 * dinv);
-            T.K[e1] = v1 - likd * (c1 * dinv);
-            T.K[e2] = v2 - likd * (c2 * dinv);
-            T.K[e3] = v3 - likd * (c3 * dinv);
-            e = e3 + QNK - 4 - j;
-          }
-          for (; j < i; ++j) {
-            T.K[e] = T.K[e] - likd * (T.K[ck + j - k] * dinv);
-            e += QNK - 1 - j;
-          }
-          T.K[e] = T.K[e] - lik * lik * dd;  // e = qf_col(i): the diagonal
-        }
-      }
-      dinv_prev = dinv;
-    }
-    // The solve, then `refine` passes of iterative refinement: plain f32
-    // residuals where ff_refine is off and on the first of several passes,
-    // error-free residuals else. Forward: each lane keeps the right-hand
-    // side of its rows and, at step k, takes y_k from the lane of row k and
-    // subtracts L_ik y_k from its rows i > k (each row's terms in k order).
-    // Backward: lane 0 runs the sequential sweep on D^-1 y, in the original
-    // order, and adds the solution to xp | zp.
+    // LDL^T in shared memory (qct_lanes.cuh), then the solve and `refine`
+    // passes of iterative refinement: plain f32 residuals where ff_refine is
+    // off and on the first of several passes, error-free residuals else,
+    // each formed by the lane of its KKT row.
+    qf_ldl_factor(T.K, T.D, g);
     for (int pass = -1; pass < refine; ++pass) {
       const bool plain = !ff_refine || (pass == 0 && refine > 1);
-      QF_LANE_VAR(float, fv, 3);
-      QF_LANES(lane) {
-        for (int m = 0; m < 3; ++m) {
-          const int R = qf_kkt_row(lane, m);
-          float v = 0.0f;
-          if (R >= 0) {
-            if (pass < 0)
-              v = R < QN ? -S.c[R] : a[R - QN] * S.h[R - QN];
-            else
-              v = plain ? qf_plain_residual(S, a, xp, zp, R)
-                        : qf_ff_residual(S, a, xp, zp, R);
-          }
-          QF_LV(fv)[m] = v;
-        }
-      }
-      // L_ik of the lane's rows for the next step, loaded a step ahead.
-      QF_LANE_VAR(float, lk, 3);
-      QF_LANES(lane) {
-#pragma unroll
-        for (int m = 0; m < 3; ++m) {
-          const int i = qf_kkt_row(lane, m);
-          QF_LV(lk)[m] = i > 0 ? T.K[i] : 0.0f;
-        }
-      }
-      for (int k = 0; k < QNK - 1; ++k) {
-        const int cn = qf_col(k + 1) - (k + 1);
-        QF_LANES(lane) {
-          float lc[3];
-#pragma unroll
-          for (int m = 0; m < 3; ++m) {
-            const int i = qf_kkt_row(lane, m);
-            lc[m] = QF_LV(lk)[m];
-            QF_LV(lk)[m] = i > k + 1 ? T.K[cn + i] : 0.0f;
-          }
-          const float yk = QF_SHFL_LV3(fv, qf_kkt_slot(k), qf_kkt_owner(k));
-#pragma unroll
-          for (int m = 0; m < 3; ++m) {
-            const int i = qf_kkt_row(lane, m);
-            if (i > k) QF_LV(fv)[m] = QF_LV(fv)[m] - lc[m] * yk;
-          }
-        }
-      }
-      QF_PHASE(lane) {
-#pragma unroll
-        for (int m = 0; m < 3; ++m) {
-          const int R = qf_kkt_row(lane, m);
-          if (R >= 0) T.u[R] = qf_div(QF_LV(fv)[m], T.D[R]);
-        }
-      }
-      QF_PHASE(lane) {
-        if (lane == 0) {
-          float un = 0.0f;  // u[i + 1]
-          for (int i = QNK - 1; i >= 0; --i) {
-            const float* c = T.K + qf_col(i) + 1;  // L_ki, k = i + 1 ...
-            const float* uk = T.u + i + 1;
-            const int n = QNK - 1 - i;
-            float v = T.u[i];
-            int m = 0;
-            if (n > 0) {
-              v = v - c[0] * un;
-              m = 1;
-            }
-            for (; m + 4 <= n; m += 4) {
-              const float p0 = c[m] * uk[m], p1 = c[m + 1] * uk[m + 1],
-                          p2 = c[m + 2] * uk[m + 2], p3 = c[m + 3] * uk[m + 3];
-              v = v - p0;
-              v = v - p1;
-              v = v - p2;
-              v = v - p3;
-            }
-            for (; m < n; ++m) v = v - c[m] * uk[m];
-            T.u[i] = v;
-            T.xz[i] = pass < 0 ? v : T.xz[i] + v;
-            un = v;
-          }
-        }
-      }
+      qf_ldl_solve(T.K, T.D, T.u, T.xz, pass < 0, g, [&](int R) {
+        if (pass < 0) return R < QN ? -S.c[R] : a[R - QN] * S.h[R - QN];
+        return plain ? qf_plain_residual(S, a, xp, zp, R)
+                     : qf_ff_residual(S, a, xp, zp, R);
+      });
     }
     // The certificate: dual residual (error-free), slacks, signed
     // multipliers, finiteness.
@@ -960,11 +707,11 @@ QCT_DEV float qf_polish(QFShared& W, const QctProb& S, int sweeps, int refine,
       for (int l = 0; l < QF_G; ++l) {
         const float vb = W.red[4][l], nb = W.red[6][l];
         const int vi = (int)W.red[5][l], ni = (int)W.red[7][l];
-        if (vb > viol_best || (vb == viol_best && vb > -Q_BIG && vi < viol_idx)) {
+        if (qf_first_max(vb, vi, viol_best, viol_idx)) {
           viol_best = vb;
           viol_idx = vi;
         }
-        if (nb < negz_best || (nb == negz_best && nb < Q_BIG && ni < negz_idx)) {
+        if (qf_first_min(nb, ni, negz_best, negz_idx)) {
           negz_best = nb;
           negz_idx = ni;
         }

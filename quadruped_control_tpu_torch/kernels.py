@@ -193,9 +193,10 @@ def mpc_launch_geometry(B: int, layout: MpcLayout) -> MpcGeometry:
 
 
 class FusedLayout(NamedTuple):
-    """What a build of the fused kernel reports (csrc/qct_fused.cuh
-    ``qf_layout``): lanes per QP, threads a block at most (its
-    ``__launch_bounds__``), words of shared memory per QP."""
+    """What a build of a kernel that runs one QP on a group of lanes reports
+    (the fused kernel's csrc/qct_fused.cuh ``qf_layout``, the dense polish's
+    csrc/qct_dense_ipm.cuh ``qd_layout``): lanes per QP, threads a block at
+    most (its ``__launch_bounds__``), words of shared memory per QP."""
 
     lanes: int
     max_threads: int
@@ -203,8 +204,9 @@ class FusedLayout(NamedTuple):
 
 
 class FusedGeometry(NamedTuple):
-    """Launch of the fused kernel: QP slot ``blockIdx.x * qps_per_block +
-    threadIdx.x // lanes`` (slots past B run along and write no output)."""
+    """Launch of a lane-group QP kernel (the fused kernel, the dense
+    polish): QP slot ``blockIdx.x * qps_per_block + threadIdx.x // lanes``
+    (slots past B run along and write no output)."""
 
     blocks: int
     threads: int
@@ -226,6 +228,14 @@ def fused_launch_geometry(B: int, layout: FusedLayout) -> FusedGeometry:
             f"shared memory; a block has {SHARED_BYTES_MAX} bytes and whole "
             f"warps")
     return FusedGeometry(-(-B // qps), threads, qps, shared)
+
+
+def dense_launch_geometry(B: int, layout: FusedLayout) -> FusedGeometry:
+    """The dense polish kernel's (K3b) launch for B QPs on its build's
+    layout (:func:`dense_polish_layout`): the fused kernel's rule, blocks of
+    the build's full thread count, ``layout.lanes`` threads and
+    ``layout.shared_words`` of shared memory per QP."""
+    return fused_launch_geometry(B, layout)
 
 
 def _fill(struct, values: dict):
@@ -380,8 +390,10 @@ def load():
             lib.qct_mpc_layout.restype = ci
             lib.qct_fused_layout.argtypes = [vp]
             lib.qct_fused_layout.restype = ci
+            lib.qct_dense_polish_layout.argtypes = [vp]
+            lib.qct_dense_polish_layout.restype = ci
             for fn in ("qct_mpc_fn", "qct_fused_barrier_fn",
-                       "qct_fused_polish_fn"):
+                       "qct_fused_polish_fn", "qct_dense_polish_fn"):
                 getattr(lib, fn).argtypes = []
                 getattr(lib, fn).restype = vp
             lib.qct_occupancy.argtypes = [vp, ci, ci, vp]
@@ -389,7 +401,8 @@ def load():
             lib.qct_dense_barrier.argtypes = [vp] * 7 + [
                 ci, ci, ctypes.c_float, vp]
             lib.qct_dense_barrier.restype = ci
-            lib.qct_dense_polish.argtypes = [vp] * 11 + [ci, vp]
+            lib.qct_dense_polish.argtypes = [vp] * 11 + [ci, ci, ci, ci,
+                                                          vp]
             lib.qct_dense_polish.restype = ci
             lib.qct_error_string.argtypes = [ci]
             lib.qct_error_string.restype = ctypes.c_char_p
@@ -686,6 +699,26 @@ def fused_occupancy(B, polish=True):
                 **_occupancy(fn, geo.threads, geo.shared_bytes))
 
 
+@functools.cache
+def dense_polish_layout() -> FusedLayout:
+    """The built dense polish kernel's (K3b) :class:`FusedLayout`."""
+    lib = load()
+    out = (ctypes.c_int * 3)()
+    _check(lib, lib.qct_dense_polish_layout(out), "qct_dense_polish_layout")
+    return FusedLayout(*out)
+
+
+def dense_occupancy(B):
+    """What the card makes of the dense polish kernel's (K3b) launch for B
+    QPs: dict of the build's layout, the geometry, the resident blocks per
+    SM and the registers and local (stack) bytes per thread."""
+    layout = dense_polish_layout()
+    geo = dense_launch_geometry(B, layout)
+    return dict(layout._asdict(), **geo._asdict(),
+                **_occupancy("qct_dense_polish_fn", geo.threads,
+                             geo.shared_bytes))
+
+
 def _dense_problem(Qp, cp, Gp, hp):
     device = cp.device
     B = cp.shape[1]
@@ -718,8 +751,9 @@ def dense_barrier(Qp, cp, Gp, hp, *, iterations, tau):
 def dense_polish(Qp, cp, Gp, hp, x_in, s_in, z_in):
     """Launch the dense certified polish kernel (K3b) once on the problem of
     :func:`dense_barrier` from the point (x (12, B), s (24, B), z (24, B)).
-    Returns (x, s, z, cert (B,)); the 36 x 36 KKT scratch is per-thread
-    local memory."""
+    Returns (x, s, z, cert (B,)). The launch takes
+    :func:`dense_launch_geometry` (a group of lanes per QP, its state and
+    36 x 36 KKT factor in shared memory)."""
     device, B = _dense_problem(Qp, cp, Gp, hp)
     for name, a, k in (("x", x_in, 12), ("s", s_in, 24), ("z", z_in, 24)):
         _require_cuda(name, a, k, B, device)
@@ -728,12 +762,14 @@ def dense_polish(Qp, cp, Gp, hp, x_in, s_in, z_in):
     s = torch.empty((24, B), dtype=torch.float32, device=device)
     z = torch.empty((24, B), dtype=torch.float32, device=device)
     cert = torch.empty((B,), dtype=torch.float32, device=device)
+    geo = dense_launch_geometry(B, dense_polish_layout())
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.qct_dense_polish(
             Qp.data_ptr(), cp.data_ptr(), Gp.data_ptr(), hp.data_ptr(),
             x_in.data_ptr(), s_in.data_ptr(), z_in.data_ptr(), x.data_ptr(),
-            s.data_ptr(), z.data_ptr(), cert.data_ptr(), B, stream)
+            s.data_ptr(), z.data_ptr(), cert.data_ptr(), B, geo.blocks,
+            geo.threads, geo.shared_bytes, stream)
     _check(lib, rc, "qct_dense_polish")
     launch_counts["qct_dense_polish"] += 1
     return x, s, z, cert

@@ -36,8 +36,9 @@ tensor by tensor where the kernel divides once. A wrapper takes the plain
 version only for tensors that lie on the CPU; for CUDA tensors it launches
 the kernel or raises.
 
-Layout: structure of arrays ``(k, B)``, one instance per CUDA thread,
-component-major so that a warp's accesses coalesce: ``Q (144, B)``
+Layout: structure of arrays ``(k, B)`` (K3a runs one instance per CUDA
+thread, K3b one per group of 16 lanes after its block has staged the
+problems in shared memory), component-major so that accesses coalesce: ``Q (144, B)``
 (row-major ``i * 12 + j``), ``c (12, B)``, ``G (288, B)`` (``r * 12 + j``),
 ``h (24, B)``, float32; any B (the kernels mask the ragged edge). The TPU
 kernels' ``(nb, k, 8, 128)`` tile layout has no counterpart
@@ -241,7 +242,7 @@ def _dense_barrier_plain(Qp, cp, Gp, hp, *, iterations: int, tau: float):
 
 # ---------------------------------------------------------------------------
 # K3b: the certified polish (plain PyTorch version of csrc/qct_dense_ipm.cuh
-# dense_polish_instance and of pallas_ipm.py::_polish_kernel)
+# dense_polish_lanes and of pallas_ipm.py::_polish_kernel)
 # ---------------------------------------------------------------------------
 
 def _dense_polish_plain(Qp, cp, Gp, hp, xin, sin, zin,

@@ -5,11 +5,13 @@
 // by a plain C++ compiler (-ffp-contract=off), so that the kernels'
 // arithmetic can be held against the plain PyTorch versions on a machine
 // without a CUDA compiler (tests/test_torch_kernel_sources_host.py,
-// tests/test_torch_mpc_lanes.py, tests/test_torch_fused_lanes.py).
+// tests/test_torch_mpc_lanes.py, tests/test_torch_fused_lanes.py,
+// tests/test_torch_dense_lanes.py).
 //
-// Built with -DQCT_LANE_PROGRAM, the two lane-group kernels, K6 (MPC) and K1
-// (fused GRF-QP), run instead as the card runs them (host_mpc_riccati_warps,
-// host_fused_solve_warps): the 32 lanes of a warp (two robot or QP slots of
+// Built with -DQCT_LANE_PROGRAM, the three lane-group kernels, K6 (MPC), K1
+// (fused GRF-QP) and K3b (dense polish), run instead as the card runs them
+// (host_mpc_riccati_warps, host_fused_solve_warps,
+// host_dense_polish_warps): the 32 lanes of a warp (two robot or QP slots of
 // 16 lanes) are coroutines, each one call of the kernel's body with its own
 // g.lane, its own lane variables and its slot's shared state. A sync or a
 // shuffle hands over to the next lane, so each lane runs alone from one sync
@@ -18,12 +20,10 @@
 // made in one order and after it in the other; so it does where a lane
 // reads, inside one section, what another lane of that section writes.
 // Either way the two orders give other bits. Lanes that do not wait at the
-// same sync (the syncs of both kernels name the whole warp) are an error of
+// same sync (the syncs of these kernels name the whole warp) are an error of
 // their own.
 #include <string.h>
 
-#include "qct_commander.cuh"
-#include "qct_dense_ipm.cuh"
 #ifdef QCT_LANE_PROGRAM
 #include <stdlib.h>
 #include <ucontext.h>
@@ -43,6 +43,8 @@ static bool lane_all(bool pred, int site);
 #define QMPC_HOST_LANES(lane) for (int lane = QMPC_G - 1; lane >= 0; --lane)
 #define QF_HOST_LANES(lane) for (int lane = QF_G - 1; lane >= 0; --lane)
 #endif
+#include "qct_commander.cuh"
+#include "qct_dense_ipm.cuh"
 #include "qct_fused.cuh"
 #include "qct_mpc.cuh"
 #include "qct_substep.cuh"
@@ -106,6 +108,24 @@ extern "C" void host_fused_solve(const float* r, const float* b,
       fused_lanes<true>(io, B, i, *params, W, g);
     else
       fused_lanes<false>(io, B, i, *params, W, g);
+  }
+}
+
+// K3b over B QPs, the lanes of each section in a loop; shared state starts
+// NaN, each QP staged and written back as one block of one thread would.
+extern "C" void host_dense_polish(const float* Q, const float* c,
+                                  const float* G, const float* h,
+                                  const float* x_in, const float* s_in,
+                                  const float* z_in, float* x, float* s,
+                                  float* z, float* cert, int B) {
+  QctDenseIO io = {Q, c, G, h, x_in, s_in, z_in, x, s, z, cert};
+  static QDShared W;
+  const QFLane g = {0};
+  for (int i = 0; i < B; ++i) {
+    memset(&W, 0xff, sizeof(W));
+    qd_stage_in(io, B, i, 1, &W, 0, 1);
+    dense_polish_lanes(W, g);
+    qd_stage_out(io, B, i, 1, &W, 0, 1);
   }
 }
 #else
@@ -265,11 +285,47 @@ extern "C" int host_fused_solve_warps(
   free(stacks);
   return rc;
 }
+
+static QDShared* qd_warp_;
+
+static void qd_lane_main(int l) {
+  QFLane g;
+  g.lane = l % QF_G;
+  dense_polish_lanes(qd_warp_[l / QF_G], g);
+}
+
+// K3b over B QPs, a warp (two QP slots) at a time, each pair staged and
+// written back by the warp's 32 threads as on the card. Returns 0, or -1
+// where the lanes of a warp did not wait at the same sync.
+extern "C" int host_dense_polish_warps(const float* Q, const float* c,
+                                       const float* G, const float* h,
+                                       const float* x_in, const float* s_in,
+                                       const float* z_in, float* x, float* s,
+                                       float* z, float* cert, int B) {
+  QctDenseIO io = {Q, c, G, h, x_in, s_in, z_in, x, s, z, cert};
+  char* stacks = (char*)malloc(LANE_WARP * lane_stack_);
+  static QDShared W[LANE_WARP / QF_G];
+  const int nq = LANE_WARP / QF_G;
+  int rc = 0;
+  for (int slot = 0; slot < B && rc == 0; slot += nq) {
+    memset(W, 0xff, sizeof(W));  // shared memory starts undefined: NaN
+    for (int t = 0; t < LANE_WARP; ++t)
+      qd_stage_in(io, B, slot, nq, W, t, LANE_WARP);
+    qd_warp_ = W;
+    rc = lane_run_warp(qd_lane_main, stacks, lane_stack_);
+    for (int t = 0; t < LANE_WARP; ++t)
+      qd_stage_out(io, B, slot, nq, W, t, LANE_WARP);
+  }
+  free(stacks);
+  return rc;
+}
 #endif
 
 extern "C" void host_mpc_layout(int* out) { qmpc_layout(out); }
 
 extern "C" void host_fused_layout(int* out) { qf_layout(out); }
+
+extern "C" void host_dense_layout(int* out) { qd_layout(out); }
 
 extern "C" void host_dense_barrier(const float* Q, const float* c,
                                    const float* G, const float* h, float* x,
@@ -279,12 +335,3 @@ extern "C" void host_dense_barrier(const float* Q, const float* c,
   for (int i = 0; i < B; ++i) dense_barrier_instance(io, B, i, iterations, tau);
 }
 
-extern "C" void host_dense_polish(const float* Q, const float* c,
-                                  const float* G, const float* h,
-                                  const float* x_in, const float* s_in,
-                                  const float* z_in, float* x, float* s,
-                                  float* z, float* cert, int B) {
-  QctDenseIO io = {Q, c, G, h, x_in, s_in, z_in, x, s, z, cert};
-  float K[QTRI], D[QNK], u[QNK];
-  for (int i = 0; i < B; ++i) dense_polish_instance(io, B, i, K, D, u);
-}
