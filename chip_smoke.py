@@ -20,7 +20,10 @@ Then the second main path, the closed-loop whole-body tick (commander-pre K4
 -> GRF QP K1 -> physics substeps K5, sim/fused_tick.py): K4 and K5 against
 their plain versions at B = 4096 on synthetic mid-walk states (K4 over 8
 chained ticks with and without its options; K5 in three configurations with
-two poisoned lanes), 600 ticks of stand-up from the laying pose and 600 ticks
+two poisoned lanes, and bitwise its serial body, qct_substep_serial, there,
+on a ragged batch and on every whole tick's own inputs of both loops; K5's
+geometry, resident blocks, registers and stack), 600 ticks of stand-up from
+the laying pose and 600 ticks
 of a 0.2 m/s trot at B = 4096 with behaviour limits and exactly 3 launches
 per tick (4 with the certification tail), the first ticks also through the
 plain versions, and ms per tick and per launch beside the bounds.
@@ -196,6 +199,29 @@ def event_ms(fn, reps):
     t0.record()
     for _ in range(reps):
         fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def graph_ms(fn, reps):
+    """Mean device time of ``fn()`` over ``reps`` calls captured in one CUDA
+    graph and replayed, after one warm-up call: for a launch shorter than
+    its wrapper's host work (K4, K5 at B = 4096), where back-to-back calls
+    would time the host. The calls made while capturing add to the launch
+    counts; the replay does not."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    graph.replay()
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
@@ -816,6 +842,38 @@ def hold_substep_to_plain(name, kern, plain, tangential="anchor"):
     return worst
 
 
+def substep_serial(stepper, state, extras, dt, n_substeps):
+    """K5's serial body (one robot per thread, the kernel's first form;
+    ``kernels.substep_serial``) on the stepper's inputs: the reference K5
+    is held to bit for bit."""
+    return kernels.substep_serial(
+        state, extras, stepper.streamed(state),
+        kernels.substep_params(stepper.consts), int(n_substeps),
+        float(dt) / int(n_substeps))
+
+
+def hold_substep_to_serial(name, kern, serial):
+    """Fail unless K5's new states are bitwise those of its serial body."""
+    if not torch.equal(kern.view(torch.int32), serial.view(torch.int32)):
+        diff = (kern != serial) & ~(kern.isnan() & serial.isnan())
+        lanes = torch.nonzero(diff.any(0)).flatten().tolist()
+        fail(f"K5 {name}: not bitwise its serial body on {len(lanes)} lanes "
+             f"(first {lanes[:8]})")
+
+
+def substep_geometry(B):
+    """K5's launch for B robots on the card: geometry, resident blocks per
+    SM, registers, stack."""
+    occ = kernels.substep_occupancy(B)
+    log(f"  K5 at B = {B}: {occ['blocks']} blocks of {occ['threads']} "
+        f"threads ({occ['robots_per_block']} robots, {occ['lanes']} lanes "
+        f"each), {occ['shared_bytes']} B of shared memory a block; "
+        f"{occ['blocks_per_sm']} blocks per SM, {occ['registers']} "
+        f"registers, {occ['local_bytes']} B of stack")
+    check(occ["blocks_per_sm"] >= 1, "K5's block fits an SM")
+    return occ
+
+
 def substep_inputs(cfg, seed, torque_input):
     rng = np.random.default_rng(seed)
     B = B_TICK
@@ -831,8 +889,8 @@ def substep_inputs(cfg, seed, torque_input):
 
 
 def phase_substep_vs_plain(cfg):
-    log(f"== phase 6: K5 (substeps) vs its plain version on the card, "
-        f"B = {B_TICK}, {N_SUBSTEPS} substeps")
+    log(f"== phase 6: K5 (substeps) vs its serial body (bitwise) and its "
+        f"plain version on the card, B = {B_TICK}, {N_SUBSTEPS} substeps")
     dt = 1.0 / cfg.frequency
     worst = 0.0
     stats = {}
@@ -850,15 +908,18 @@ def phase_substep_vs_plain(cfg):
             torque_input=torque_input, gravity_comp=gc)
         state, extras = substep_inputs(cfg, SEED + 50, torque_input)
         kern = stepper.packed(state, *extras, dt, N_SUBSTEPS)
+        serial = substep_serial(stepper, state, extras, dt, N_SUBSTEPS)
         torch.cuda.synchronize()
+        hold_substep_to_serial(name, kern, serial)
         t0 = time.time()
         plain = stepper.plain(state, *extras, dt, N_SUBSTEPS)
         torch.cuda.synchronize()
         plain_ms = (time.time() - t0) * 1e3
         err = hold_substep_to_plain(name, kern, plain, contact.tangential)
         worst = max(worst, err)
-        log(f"  {name}: within tolerance (max abs err {err:.3e}), every "
-            f"value finite: {bool(torch.isfinite(kern).all())}")
+        log(f"  {name}: bitwise its serial body; within tolerance of the "
+            f"plain version (max abs err {err:.3e}), every value finite: "
+            f"{bool(torch.isfinite(kern).all())}")
         if not bool(torch.isfinite(kern).all()):
             fail(f"K5 {name}: non-finite output")
         stats[name] = dict(plain_ms=plain_ms)
@@ -872,7 +933,9 @@ def phase_substep_vs_plain(cfg):
         k1 = stepper.packed(bad, *extras, dt / N_SUBSTEPS, 1)
         p1 = stepper.plain(bad, *extras, dt / N_SUBSTEPS, 1)
         ref1 = stepper.packed(state, *extras, dt / N_SUBSTEPS, 1)
+        s1 = substep_serial(stepper, bad, extras, dt / N_SUBSTEPS, 1)
         torch.cuda.synchronize()
+        hold_substep_to_serial(name + " (poisoned lanes, 1 substep)", k1, s1)
         for nm, out in (("kernel", k1), ("plain", p1)):
             frozen = (torch.equal(out[_POSE_ROWS, 0], bad[_POSE_ROWS, 0])
                       and bool((out[_VEL_ROWS, 0] == 0).all()))
@@ -886,14 +949,26 @@ def phase_substep_vs_plain(cfg):
             fail(f"K5 {name}: a poisoned lane changed its neighbours")
         kn = stepper.packed(bad, *extras, dt, N_SUBSTEPS)
         pn = stepper.plain(bad, *extras, dt, N_SUBSTEPS)
+        sn = substep_serial(stepper, bad, extras, dt, N_SUBSTEPS)
         torch.cuda.synchronize()
+        hold_substep_to_serial(name + f" (poisoned lanes, {N_SUBSTEPS} "
+                               f"substeps)", kn, sn)
         if not (bool(torch.isfinite(kn).all()) and torch.equal(
                 kn[:, 2:], kern[:, 2:])):
             fail(f"K5 {name}: poisoned lanes after {N_SUBSTEPS} substeps")
         hold_substep_to_plain(name + " (poisoned lanes)", kn[:, :1],
                               pn[:, :1], contact.tangential)
         log("    guard: the NaN lane froze for its substep, the 1e6 lane was "
-            "clamped to 200, the other lanes are bitwise unchanged")
+            "clamped to 200, the other lanes are bitwise unchanged; bitwise "
+            "the serial body with the poisoned lanes")
+        # A ragged batch: the last block's robot slots past B.
+        Br = 1061
+        cut = tuple(a[:, :Br].contiguous() for a in (bad, *extras))
+        hold_substep_to_serial(
+            name + f" (ragged B = {Br})",
+            stepper.packed(cut[0], *cut[1:], dt, N_SUBSTEPS),
+            substep_serial(stepper, cut[0], cut[1:], dt, N_SUBSTEPS))
+    stats["geometry"] = substep_geometry(B_TICK)
     return worst, stats
 
 
@@ -922,11 +997,14 @@ def tick_vs_plain(name, tick, model, cfg, contact, state_p, carry_p, warm_p,
     extras = (kern1[0], kern4[6], kern4[2])
     kern5 = tick.stepper.packed(state_p, *extras, dt, N_SUBSTEPS)
     plain5 = tick.stepper.plain(state_p, *extras, dt, N_SUBSTEPS)
+    serial5 = substep_serial(tick.stepper, state_p, extras, dt, N_SUBSTEPS)
     torch.cuda.synchronize()
+    hold_substep_to_serial(name, kern5, serial5)
     e5 = hold_substep_to_plain(name, kern5, plain5)
     log(f"  {name}: K4 within tolerance (max {e4:.2e}), QP objective within "
-        f"the 1e-6 bar (max|dx| {e1:.2e}), state after the tick within "
-        f"tolerance (max {e5:.2e})")
+        f"the 1e-6 bar (max|dx| {e1:.2e}), state after the tick bitwise K5's "
+        f"serial body and within tolerance of the plain version (max "
+        f"{e5:.2e})")
     return kern5, kern4[7], (kern1[0], kern1[1], kern1[2], kern4[2]), e1
 
 
@@ -1032,7 +1110,8 @@ def phase_tick(cfg):
     check(conv > 0.98, "stand-up: QP converged fraction > 0.98")
     check(counts["qct_commander_pre"] == 600
           and counts["qct_fused_solve"] == 600
-          and counts["qct_substep"] == 600 and counts["qct_assemble"] == 0,
+          and counts["qct_substep"] == 600 and counts["qct_assemble"] == 0
+          and counts["qct_substep_serial"] == 0,
           "exactly 3 launches per tick (K4, K1, K5)")
     launches = dict(counts)
 
@@ -1058,7 +1137,8 @@ def phase_tick(cfg):
     check(swing > 0.02, "trot: legs swing")
     check(counts2["qct_commander_pre"] == 600
           and counts2["qct_fused_solve"] == 600
-          and counts2["qct_substep"] == 600,
+          and counts2["qct_substep"] == 600
+          and counts2["qct_substep_serial"] == 0,
           "exactly 3 launches per tick in the trot")
     for k_ in launches:
         launches[k_] += counts2[k_]
@@ -1080,7 +1160,8 @@ def phase_tick(cfg):
         f"{(res3.plant.R[:, 2, 2] > 0.9).float().mean().item():.4f}")
     check(counts3["qct_commander_pre"] == 100
           and counts3["qct_fused_solve"] == 200
-          and counts3["qct_substep"] == 100,
+          and counts3["qct_substep"] == 100
+          and counts3["qct_substep_serial"] == 0,
           "exactly 4 launches per tick with the tail (K4, K1, K1, K5)")
     check(conv3 > 0.93, "tail run: QP converged fraction > 0.93 (a 6-iteration "
           "barrier with no polish, then the tail on the worst quarter)")
@@ -1142,7 +1223,7 @@ def phase_tick_times(cfg, tick, model, contact, res, res2, cmd):
     out = {}
 
     k4 = tick.pre(state_p, carry_p, cmd_p)
-    ms4 = event_ms(lambda: tick.pre(state_p, carry_p, cmd_p), 50)
+    ms4 = graph_ms(lambda: tick.pre(state_p, carry_p, cmd_p), 50)
     t0 = time.time()
     fcmd.commander_pre_plain(tick.consts, state_p, carry_p, cmd_p)
     torch.cuda.synchronize()
@@ -1174,15 +1255,18 @@ def phase_tick_times(cfg, tick, model, contact, res, res2, cmd):
         geometry=fused_geometry(B, True))
 
     extras = (k1[0], k4[6], k4[2])
-    ms5 = event_ms(lambda: tick.stepper.packed(state_p, *extras, dt,
+    ms5 = graph_ms(lambda: tick.stepper.packed(state_p, *extras, dt,
                                                N_SUBSTEPS), 20)
+    ms5s = graph_ms(lambda: substep_serial(tick.stepper, state_p, extras, dt,
+                                           N_SUBSTEPS), 20)
     t0 = time.time()
     tick.stepper.plain(state_p, *extras, dt, N_SUBSTEPS)
     torch.cuda.synchronize()
     plain5 = (time.time() - t0) * 1e3
     b5, by5 = bound_ms(4 * B * (58 + 28 + 58),
                        B * ops_substep(tick.stepper.consts, N_SUBSTEPS))
-    out["k5"] = dict(ms=ms5, plain_ms=plain5, bound_ms=b5, bound_by=by5)
+    out["k5"] = dict(ms=ms5, plain_ms=plain5, bound_ms=b5, bound_by=by5,
+                     serial_ms=ms5s)
 
     in_kernels = ms4 + ms1 + ms5
     log(f"  K4: {ms4:.4f} ms (plain {plain4:.0f} ms, bound {b4:.5f} ms, "
@@ -1191,8 +1275,8 @@ def phase_tick_times(cfg, tick, model, contact, res, res2, cmd):
         f"{b1:.5f} ms, {by1}; sweeps run mean "
         f"{out['k1_tick']['mean_sweeps_run']:.2f} max "
         f"{out['k1_tick']['max_sweeps_run']})")
-    log(f"  K5: {ms5:.4f} ms (plain {plain5:.0f} ms, bound {b5:.5f} ms, "
-        f"{by5})")
+    log(f"  K5: {ms5:.4f} ms (its serial body {ms5s:.4f} ms, plain "
+        f"{plain5:.0f} ms, bound {b5:.5f} ms, {by5})")
     log(f"  the three launches sum to {in_kernels:.4f} ms on the mid-trot "
         f"state; share of the tick not inside a kernel: "
         f"{(ms_tick - in_kernels) / ms_tick:.3f}")
@@ -1376,11 +1460,13 @@ def mpc_tick_vs_plain(name, cfg, tick, state_p, carry_p, warm_p, cmd_p,
     extras = (k6[0][0:12], k4[6], k4[2])
     k5 = tick.stepper.packed(state_p, *extras, dt, N_SUBSTEPS)
     p5 = tick.stepper.plain(state_p, *extras, dt, N_SUBSTEPS)
+    s5 = substep_serial(tick.stepper, state_p, extras, dt, N_SUBSTEPS)
     torch.cuda.synchronize()
+    hold_substep_to_serial(name, k5, s5)
     e5 = hold_substep_to_plain(name, k5, p5)
     log(f"  {name}: K4 + MPC block equal to plain, K6 within tolerance "
-        f"(max|dF| {e6:.2e}), state after the tick within tolerance (max "
-        f"{e5:.2e})")
+        f"(max|dF| {e6:.2e}), state after the tick bitwise K5's serial body "
+        f"and within tolerance of the plain version (max {e5:.2e})")
     return max(e4, e5), e6
 
 
@@ -1435,7 +1521,8 @@ def phase_mpc_tick(cfg):
               and counts["qct_mpc_riccati"] == steps
               and counts["qct_substep"] == steps
               and counts["qct_fused_solve"] == 0
-              and counts["qct_assemble"] == 0,
+              and counts["qct_assemble"] == 0
+              and counts["qct_substep_serial"] == 0,
               f"{what}: exactly 3 launches per tick (K4, K6, K5), no K1: "
               f"{counts}")
 
@@ -1545,7 +1632,8 @@ def phase_mpc_tick(cfg):
         f"launches {cdec}, MPC converged "
         f"{dec.trace.qp_converged.float().mean().item():.4f}")
     check(cdec["qct_mpc_riccati"] == 50 and cdec["qct_commander_pre"] == 200
-          and cdec["qct_substep"] == 200 and cdec["qct_fused_solve"] == 0,
+          and cdec["qct_substep"] == 200 and cdec["qct_fused_solve"] == 0
+          and cdec["qct_substep_serial"] == 0,
           "decimated: K6 launched steps / 4 times, K4 and K5 every tick")
     return dict(tick=tick, cold_tick=cold, model=model, res=res,
                 res_mid=res_mid, cmd=cmd, launches=launches,
@@ -1710,7 +1798,7 @@ def phase_mpc_times(cfg, mpc):
     carry_p = fcmd.pack_commander_carry(res2.carry)
     cmd_p = cmd.t().contiguous()
     k4 = tick.pre(state_p, carry_p, cmd_p)
-    ms4 = event_ms(lambda: tick.pre(state_p, carry_p, cmd_p), 50)
+    ms4 = graph_ms(lambda: tick.pre(state_p, carry_p, cmd_p), 50)
     t0 = time.time()
     fcmd.commander_pre_plain(tick.consts, state_p, carry_p, cmd_p,
                              mpc_horizon=MPC_N, mpc_dt=MPC_DT)
@@ -1744,7 +1832,7 @@ def phase_mpc_times(cfg, mpc):
                      n24_cold25=dict(ms=ms6n, bound_ms=b6n, bound_by=by6n))
     F_p = tick.solve(k4[9], res2.warm)[0]
     extras = (F_p[0:12], k4[6], k4[2])
-    ms5 = event_ms(lambda: tick.stepper.packed(state_p, *extras,
+    ms5 = graph_ms(lambda: tick.stepper.packed(state_p, *extras,
                                                tick.consts.dt, N_SUBSTEPS), 20)
     in_k = ms4 + ms6 + ms5
     ms_tick = out["summary"]["warm-8"]["ms_per_tick"]
@@ -2138,7 +2226,7 @@ def main():
 
     tick_cfg = mit_cheetah_physical_config()
     err4 = phase_commander_vs_plain(tick_cfg)
-    err5, _ = phase_substep_vs_plain(tick_cfg)
+    err5, k5_stats = phase_substep_vs_plain(tick_cfg)
     tick_res = phase_tick(tick_cfg)
     tick_launches = tick_res["launches"]
     modes = modes + [tick_res["k1_tick"]]
@@ -2208,8 +2296,9 @@ def main():
         "launches_by_path": {"tick": tick_launches["qct_substep"],
                              "mpc_tick": mpc_launches["qct_substep"]},
         "max_abs_err": err5, "library_ms": None,
-        "shape": f"B={B_TICK}, {N_SUBSTEPS} substeps, 1 launch per tick",
-        **tick_res["k5"],
+        "shape": f"B={B_TICK}, {N_SUBSTEPS} substeps, 1 launch per tick; "
+                 f"serial_ms: its serial body (one robot per thread)",
+        **tick_res["k5"], "geometry": k5_stats["geometry"],
     }
     k6_entry = {
         "name": "qct_mpc_riccati", "route": "cuda",

@@ -45,8 +45,8 @@ _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # Launches of each kernel since the last reset (plain integers).
 launch_counts = {"qct_fused_solve": 0, "qct_assemble": 0,
                  "qct_commander_pre": 0, "qct_substep": 0,
-                 "qct_mpc_riccati": 0, "qct_dense_barrier": 0,
-                 "qct_dense_polish": 0}
+                 "qct_substep_serial": 0, "qct_mpc_riccati": 0,
+                 "qct_dense_barrier": 0, "qct_dense_polish": 0}
 
 # The compiler's resource report (-Xptxas -v) of the build this process made
 # ("" when the library of an earlier build was loaded).
@@ -155,9 +155,11 @@ SHARED_BYTES_MAX = 232448
 
 
 class MpcLayout(NamedTuple):
-    """What a build of the MPC kernel reports (csrc/qct_mpc.cuh
-    ``qmpc_layout``): lanes per robot, threads a block at most (its
-    ``__launch_bounds__``), words of shared memory per robot."""
+    """What a build of a kernel that runs one robot on a group of lanes
+    reports (the MPC kernel's csrc/qct_mpc.cuh ``qmpc_layout``, the substep
+    kernel's csrc/qct_substep.cuh ``qs_layout``): lanes per robot, threads a
+    block at most (its ``__launch_bounds__``), words of shared memory per
+    robot."""
 
     lanes: int
     max_threads: int
@@ -165,8 +167,9 @@ class MpcLayout(NamedTuple):
 
 
 class MpcGeometry(NamedTuple):
-    """Launch of the MPC kernel: robot slot ``blockIdx.x * robots_per_block
-    + threadIdx.x // lanes`` (slots past B run along and write no output)."""
+    """Launch of a lane-group robot kernel (the MPC kernel, the substep
+    kernel): robot slot ``blockIdx.x * robots_per_block + threadIdx.x //
+    lanes`` (slots past B run along and write no output)."""
 
     blocks: int
     threads: int
@@ -228,6 +231,26 @@ def fused_launch_geometry(B: int, layout: FusedLayout) -> FusedGeometry:
             f"shared memory; a block has {SHARED_BYTES_MAX} bytes and whole "
             f"warps")
     return FusedGeometry(-(-B // qps), threads, qps, shared)
+
+
+def substep_launch_geometry(B: int, layout: MpcLayout) -> MpcGeometry:
+    """The substep kernel's (K5) launch for B robots on its build's layout
+    (:func:`substep_layout`): blocks of the build's full thread count,
+    ``layout.lanes`` threads and ``layout.shared_words`` of shared memory per
+    robot (the model parameters' copy, ``SubstepParams``, is the kernel's
+    static shared memory). Raises where such a block is not made of whole
+    warps or does not fit a Hopper block's shared memory."""
+    robots = layout.max_threads // layout.lanes
+    threads = robots * layout.lanes
+    shared = robots * layout.shared_words * 4
+    if (robots < 1 or threads % 32 != 0 or
+            shared + ctypes.sizeof(SubstepParams) > SHARED_BYTES_MAX):
+        raise ValueError(
+            f"{robots} robots a block of {threads} threads need {shared} "
+            f"bytes of shared memory and the model's "
+            f"{ctypes.sizeof(SubstepParams)}; a block has "
+            f"{SHARED_BYTES_MAX} bytes and whole warps")
+    return MpcGeometry(-(-B // robots), threads, robots, shared)
 
 
 def dense_launch_geometry(B: int, layout: FusedLayout) -> FusedGeometry:
@@ -381,8 +404,14 @@ def load():
                 ci, ctypes.POINTER(CommanderParams), vp]
             lib.qct_commander_pre.restype = ci
             lib.qct_substep.argtypes = [vp] * 6 + [
-                ci, ci, ctypes.c_float, ctypes.POINTER(SubstepParams), vp]
+                ci, ci, ctypes.c_float, ctypes.POINTER(SubstepParams), ci, ci,
+                ci, vp]
             lib.qct_substep.restype = ci
+            lib.qct_substep_serial.argtypes = [vp] * 6 + [
+                ci, ci, ctypes.c_float, ctypes.POINTER(SubstepParams), vp]
+            lib.qct_substep_serial.restype = ci
+            lib.qct_substep_layout.argtypes = [vp]
+            lib.qct_substep_layout.restype = ci
             lib.qct_mpc_riccati.argtypes = [vp] * 10 + [
                 ci, ci, ci, ci, ctypes.POINTER(MpcParams), vp]
             lib.qct_mpc_riccati.restype = ci
@@ -393,7 +422,8 @@ def load():
             lib.qct_dense_polish_layout.argtypes = [vp]
             lib.qct_dense_polish_layout.restype = ci
             for fn in ("qct_mpc_fn", "qct_fused_barrier_fn",
-                       "qct_fused_polish_fn", "qct_dense_polish_fn"):
+                       "qct_fused_polish_fn", "qct_dense_polish_fn",
+                       "qct_substep_fn"):
                 getattr(lib, fn).argtypes = []
                 getattr(lib, fn).restype = vp
             lib.qct_occupancy.argtypes = [vp, ci, ci, vp]
@@ -561,13 +591,9 @@ def commander_pre(state, carry, cmd, params):
     return outs
 
 
-def substep(state, extras, factor, params, n_substeps, h):
-    """Launch the substep kernel (K5) once on ``(k, B)`` CUDA tensors:
-    ``state`` (58, B); ``extras`` = (fw (12, B), tau_swing (12, B), st (4,
-    B)) when ``params.torque_qp`` else (tau (12, B),); ``factor`` (216, B)
-    unless ``params.prefactor_kernel``. ``params`` is a
-    :class:`SubstepParams` (see :func:`substep_params`). Returns the new
-    state (58, B)."""
+def _substep_args(state, extras, factor, params):
+    """Check K5's tensors; returns (B, device, the pointers of state, a,
+    tau_swing, st and factor, None where a tensor is not taken)."""
     device = state.device
     B = state.shape[1]
     _require_cuda("state", state, 58, B, device)
@@ -582,17 +608,49 @@ def substep(state, extras, factor, params, n_substeps, h):
             raise ValueError("factor given but the kernel builds its own")
     else:
         _require_cuda("factor", factor, 216, B, device)
+    ptrs = ([state.data_ptr()] + [a.data_ptr() for a in extras]
+            + [None] * (3 - len(extras))
+            + [None if factor is None else factor.data_ptr()])
+    return B, device, ptrs
+
+
+def substep(state, extras, factor, params, n_substeps, h):
+    """Launch the substep kernel (K5) once on ``(k, B)`` CUDA tensors:
+    ``state`` (58, B); ``extras`` = (fw (12, B), tau_swing (12, B), st (4,
+    B)) when ``params.torque_qp`` else (tau (12, B),); ``factor`` (216, B)
+    unless ``params.prefactor_kernel``. ``params`` is a
+    :class:`SubstepParams` (see :func:`substep_params`). Returns the new
+    state (58, B). The launch takes :func:`substep_launch_geometry` (a
+    group of lanes per robot)."""
+    B, device, ptrs = _substep_args(state, extras, factor, params)
     lib = load()
+    geo = substep_launch_geometry(B, substep_layout())
     out = torch.empty((58, B), dtype=torch.float32, device=device)
-    ptrs = [a.data_ptr() for a in extras] + [None] * (3 - len(extras))
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.qct_substep(
-            state.data_ptr(), *ptrs,
-            None if factor is None else factor.data_ptr(), out.data_ptr(),
-            B, int(n_substeps), float(h), ctypes.byref(params), stream)
+        rc = lib.qct_substep(*ptrs, out.data_ptr(), B, int(n_substeps),
+                             float(h), ctypes.byref(params), geo.blocks,
+                             geo.threads, geo.shared_bytes, stream)
     _check(lib, rc, "qct_substep")
     launch_counts["qct_substep"] += 1
+    return out
+
+
+def substep_serial(state, extras, factor, params, n_substeps, h):
+    """Launch K5's serial body (one robot per thread, the kernel's first
+    form) once, with :func:`substep`'s arguments. It is the reference that
+    chip_smoke.py holds K5 to bit for bit; no path of the port calls it.
+    Counted under ``launch_counts["qct_substep_serial"]``."""
+    B, device, ptrs = _substep_args(state, extras, factor, params)
+    lib = load()
+    out = torch.empty((58, B), dtype=torch.float32, device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.qct_substep_serial(*ptrs, out.data_ptr(), B,
+                                    int(n_substeps), float(h),
+                                    ctypes.byref(params), stream)
+    _check(lib, rc, "qct_substep_serial")
+    launch_counts["qct_substep_serial"] += 1
     return out
 
 
@@ -716,6 +774,26 @@ def dense_occupancy(B):
     geo = dense_launch_geometry(B, layout)
     return dict(layout._asdict(), **geo._asdict(),
                 **_occupancy("qct_dense_polish_fn", geo.threads,
+                             geo.shared_bytes))
+
+
+@functools.cache
+def substep_layout() -> MpcLayout:
+    """The built substep kernel's (K5) :class:`MpcLayout`."""
+    lib = load()
+    out = (ctypes.c_int * 3)()
+    _check(lib, lib.qct_substep_layout(out), "qct_substep_layout")
+    return MpcLayout(*out)
+
+
+def substep_occupancy(B):
+    """What the card makes of the substep kernel's (K5) launch for B robots:
+    dict of the build's layout, the geometry, the resident blocks per SM and
+    the registers and local (stack) bytes per thread."""
+    layout = substep_layout()
+    geo = substep_launch_geometry(B, layout)
+    return dict(layout._asdict(), **geo._asdict(),
+                **_occupancy("qct_substep_fn", geo.threads,
                              geo.shared_bytes))
 
 

@@ -368,7 +368,9 @@ def make_fused_stepper(model: WholeBodyModel, cfg: ControlConfig,
     ``rows`` is ignored (a tile height of the TPU kernel). Also exposed:
     ``stepper.plain(state_p, *extras, dt, n_substeps)`` (the plain version on
     any device), ``stepper.build_factor(q)`` and ``stepper.torque_map(...)``
-    (the plain versions of the two prologues) and ``stepper.consts``.
+    (the plain versions of the two prologues), ``stepper.streamed(state_p)``
+    (the (216, B) factor the kernel is given, None with ``prefactor=
+    "kernel"``) and ``stepper.consts``.
     """
     if prefactor not in ("kernel", "xla"):
         raise ValueError(f"prefactor must be 'kernel'|'xla': {prefactor}")
@@ -472,6 +474,7 @@ def make_fused_stepper(model: WholeBodyModel, cfg: ControlConfig,
 
     stepper.packed = packed
     stepper.plain = plain
+    stepper.streamed = streamed
     stepper.build_factor = build_factor
     stepper.torque_map = torque_map
     stepper.consts = consts

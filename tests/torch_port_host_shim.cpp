@@ -6,14 +6,15 @@
 // arithmetic can be held against the plain PyTorch versions on a machine
 // without a CUDA compiler (tests/test_torch_kernel_sources_host.py,
 // tests/test_torch_mpc_lanes.py, tests/test_torch_fused_lanes.py,
-// tests/test_torch_dense_lanes.py).
+// tests/test_torch_dense_lanes.py, tests/test_torch_substep_lanes.py).
 //
-// Built with -DQCT_LANE_PROGRAM, the three lane-group kernels, K6 (MPC), K1
-// (fused GRF-QP) and K3b (dense polish), run instead as the card runs them
-// (host_mpc_riccati_warps, host_fused_solve_warps,
-// host_dense_polish_warps): the 32 lanes of a warp (two robot or QP slots of
-// 16 lanes) are coroutines, each one call of the kernel's body with its own
-// g.lane, its own lane variables and its slot's shared state. A sync or a
+// Built with -DQCT_LANE_PROGRAM, the four lane-group kernels, K6 (MPC), K1
+// (fused GRF-QP), K3b (dense polish) and K5 (substeps), run instead as the
+// card runs them (host_mpc_riccati_warps, host_fused_solve_warps,
+// host_dense_polish_warps, host_substep_warps): the 32 lanes of a warp (two
+// robot or QP slots of 16 lanes, or 32 / QS_G robot slots of QS_G lanes)
+// are coroutines, each one call of the kernel's body with its own g.lane,
+// its own lane variables and its slot's shared state. A sync or a
 // shuffle hands over to the next lane, so each lane runs alone from one sync
 // to the next: lane 0 first, or lane 31 first with -DQCT_REVERSE_LANES.
 // Where a sync is missing, a lane reads another lane's write before it is
@@ -36,12 +37,14 @@ static bool lane_all(bool pred, int site);
 #define QF_WARP_SYNC() lane_yield(__LINE__)
 #define QF_WARP_SHFL(v, src) lane_shfl((v), (src), QF_G, __LINE__)
 #define QF_WARP_ALL(pred) lane_all((pred), __LINE__)
+#define QS_WARP_SYNC() lane_yield(__LINE__)
 #elif defined(QCT_REVERSE_LANES)
 // The serial build with the lanes of each section run last lane first: a
 // section in which a lane reads what another lane of the same section
 // writes gives other bits in the two orders.
 #define QMPC_HOST_LANES(lane) for (int lane = QMPC_G - 1; lane >= 0; --lane)
 #define QF_HOST_LANES(lane) for (int lane = QF_G - 1; lane >= 0; --lane)
+#define QS_HOST_LANES(lane) for (int lane = QS_G - 1; lane >= 0; --lane)
 #endif
 #include "qct_commander.cuh"
 #include "qct_dense_ipm.cuh"
@@ -60,17 +63,37 @@ extern "C" void host_commander_pre(const float* state, const float* carry,
   for (int i = 0; i < B; ++i) commander_instance(io, B, i, *params);
 }
 
+// K5's serial body (one robot per thread), the reference of its lane body.
+extern "C" void host_substep_serial(const float* state, const float* a,
+                                    const float* tau_sw, const float* st,
+                                    const float* factor, float* out, int B,
+                                    int n_substeps, float h,
+                                    const QctSubParams* params) {
+  QctSubIO io = {state, a, tau_sw, st, factor, out};
+  for (int i = 0; i < B; ++i)
+    substep_instance_serial(io, B, i, n_substeps, h, *params);
+}
+
+#ifndef QCT_LANE_PROGRAM
+// K5's lane body over B robots, the lanes of each section in a loop; shared
+// state starts NaN, each robot staged and written back as one block of one
+// thread would.
 extern "C" void host_substep(const float* state, const float* a,
                              const float* tau_sw, const float* st,
                              const float* factor, float* out, int B,
                              int n_substeps, float h,
                              const QctSubParams* params) {
   QctSubIO io = {state, a, tau_sw, st, factor, out};
-  for (int i = 0; i < B; ++i)
-    substep_instance(io, B, i, n_substeps, h, *params);
+  static QSShared W;
+  const QSLane g = {0};
+  for (int i = 0; i < B; ++i) {
+    memset(&W, 0xff, sizeof(W));
+    qs_stage_in(io, *params, B, i, 1, &W, 0, 1);
+    substep_lanes(W, *params, n_substeps, h, g);
+    qs_stage_out(io, B, i, 1, &W, 0, 1);
+  }
 }
 
-#ifndef QCT_LANE_PROGRAM
 extern "C" void host_mpc_riccati(const float* block, const float* yaw,
                                  const float* phys, const float* warm_F,
                                  const float* warm_sz,
@@ -319,6 +342,49 @@ extern "C" int host_dense_polish_warps(const float* Q, const float* c,
   free(stacks);
   return rc;
 }
+
+static struct {
+  const QctSubParams* p;
+  int n_substeps;
+  float h;
+  QSShared* W;
+} qs_warp_;
+
+static void qs_lane_main(int l) {
+  QSLane g;
+  g.lane = l % QS_G;
+  substep_lanes(qs_warp_.W[l / QS_G], *qs_warp_.p, qs_warp_.n_substeps,
+                qs_warp_.h, g);
+}
+
+// K5 over B robots, a warp (32 / QS_G robot slots) at a time, each warp's
+// robots staged and written back by its 32 threads as on the card. Returns
+// 0, or -1 where the lanes of a warp did not wait at the same sync.
+extern "C" int host_substep_warps(const float* state, const float* a,
+                                  const float* tau_sw, const float* st,
+                                  const float* factor, float* out, int B,
+                                  int n_substeps, float h,
+                                  const QctSubParams* params) {
+  QctSubIO io = {state, a, tau_sw, st, factor, out};
+  char* stacks = (char*)malloc(LANE_WARP * lane_stack_);
+  static QSShared W[LANE_WARP / QS_G];
+  const int nr = LANE_WARP / QS_G;
+  int rc = 0;
+  for (int slot = 0; slot < B && rc == 0; slot += nr) {
+    memset(W, 0xff, sizeof(W));  // shared memory starts undefined: NaN
+    for (int t = 0; t < LANE_WARP; ++t)
+      qs_stage_in(io, *params, B, slot, nr, W, t, LANE_WARP);
+    qs_warp_.p = params;
+    qs_warp_.n_substeps = n_substeps;
+    qs_warp_.h = h;
+    qs_warp_.W = W;
+    rc = lane_run_warp(qs_lane_main, stacks, lane_stack_);
+    for (int t = 0; t < LANE_WARP; ++t)
+      qs_stage_out(io, B, slot, nr, W, t, LANE_WARP);
+  }
+  free(stacks);
+  return rc;
+}
 #endif
 
 extern "C" void host_mpc_layout(int* out) { qmpc_layout(out); }
@@ -326,6 +392,8 @@ extern "C" void host_mpc_layout(int* out) { qmpc_layout(out); }
 extern "C" void host_fused_layout(int* out) { qf_layout(out); }
 
 extern "C" void host_dense_layout(int* out) { qd_layout(out); }
+
+extern "C" void host_substep_layout(int* out) { qs_layout(out); }
 
 extern "C" void host_dense_barrier(const float* Q, const float* c,
                                    const float* G, const float* h, float* x,
