@@ -46,14 +46,15 @@ launch beside the bound (K6 also at N = 24).
 Then the fourth main path, the dense QP solve (solver/fused_ipm.py: the
 dense barrier K3a, then the certified polish K3b) at B = 32768: both kernels
 against their plain versions (20 and 3 iterations, the polish on the
-barrier's point, a ragged batch with two poisoned lanes; K3b bitwise, a
-hold, there and on the xla prox stage's slices), K3b's launch geometry,
-resident blocks, registers and stack, the split pipeline
+barrier's point, a ragged batch with two poisoned lanes; both bitwise, a
+hold, there, on every lane of the ragged batch and on the xla prox stage's
+slices), both kernels' launch geometry, resident blocks, registers and
+stack, the split pipeline
 (grf_scenarios -> assemble_qp_batch -> solve_qp_ipm_fused) with its
 converged fraction, float64 oracle parity and exactly one launch of each
 kernel per solve, and solve_balance_qp_fused with the bench schedule and
 prox_backend="xla" (3 K1 launches + 6 x (K3a + K3b) per solve), with times
-beside the bounds.
+beside the bounds (K3a and K3b also at the xla prox slice's 1024 QPs).
 
 Any failed phase ends the run with a non-zero exit code; nothing is caught and
 carried on. Without a CUDA device it exits with code 2 and prints no result.
@@ -1945,12 +1946,27 @@ def hold_dense_polish_bitwise(name, kern, plain):
         f"({kern[3].numel()} QPs)")
 
 
-def dense_geometry(B):
-    """K3b's launch for B QPs as the card makes it (kernels.dense_occupancy),
-    logged: blocks, threads, shared bytes a block, resident blocks per SM,
+def hold_dense_barrier_bitwise(name, kern, plain):
+    """Fail unless K3a's outputs ``kern`` = (x, s, z) equal its plain
+    version's on the same inputs, bit for bit in every value (a NaN equal
+    to any NaN): the same statements in the same order (``-fmad=false``;
+    the card's ``1.0f / sqrtf`` and ``torch.sqrt`` on the card are both
+    correctly rounded)."""
+    if not all(same_values(a, b) for a, b in zip(kern, plain)):
+        fail(f"kernel K3a {name} is not bitwise equal to its plain version")
+    log(f"  ok: K3a {name}: bitwise its plain version in every value "
+        f"({kern[0].shape[1]} QPs)")
+
+
+def dense_geometry(B, barrier=False):
+    """K3b's (or K3a's) launch for B QPs as the card makes it
+    (kernels.dense_occupancy, kernels.dense_barrier_occupancy), logged:
+    blocks, threads, shared bytes a block, resident blocks per SM,
     registers and local (stack) bytes per thread."""
-    occ = kernels.dense_occupancy(B)
-    log(f"    K3b launch, B = {B}: {occ['blocks']} blocks of "
+    occ = (kernels.dense_barrier_occupancy(B) if barrier
+           else kernels.dense_occupancy(B))
+    log(f"    {'K3a' if barrier else 'K3b'} launch, B = {B}: "
+        f"{occ['blocks']} blocks of "
         f"{occ['threads']} threads ({occ['qps_per_block']} QPs x "
         f"{occ['lanes']} lanes), {occ['shared_bytes']} B of shared memory a "
         f"block, {occ['blocks_per_sm']} blocks per SM, {occ['registers']} "
@@ -1970,6 +1986,7 @@ def phase_dense_vs_plain(cfg, gen):
         torch.cuda.synchronize()
         err, bw = hold_dense_to_plain(f"K3a {it} iterations", k, p, qp.Q,
                                       qp.c, Dv)
+        hold_dense_barrier_bitwise(f"{it} iterations, B = {B_MAIN}", k, p)
         worst["qct_dense_barrier"] = max(worst["qct_dense_barrier"], err)
         bitwise[f"K3a_{it}"] = bw
         if it == DENSE_ITERS:
@@ -2006,12 +2023,17 @@ def phase_dense_vs_plain(cfg, gen):
               for a, b in zip(kb + kq, bar + kp)),
           "ragged launch: every unpoisoned lane is bitwise its lane of the "
           "full batch's launches")
+    hold_dense_barrier_bitwise(f"ragged B = {Br}, two poisoned lanes, every "
+                               f"lane", kb, pb)
     hold_dense_polish_bitwise(f"ragged B = {Br}, two poisoned lanes, every "
                               f"lane", kq, pq)
     check(float(kq[3][5]) == 0.0 and float(kq[3][1000]) == 0.0,
           "the poisoned lanes are not certified")
     geometry = {str(b): dense_geometry(b) for b in (B_MAIN, 1024, Br)}
-    return dict(worst=worst, bitwise=bitwise, geometry=geometry)
+    geometry_k3a = {str(b): dense_geometry(b, barrier=True)
+                    for b in (B_MAIN, 1024, Br)}
+    return dict(worst=worst, bitwise=bitwise, geometry=geometry,
+                geometry_k3a=geometry_k3a)
 
 
 def phase_split_pipeline(cfg, gen):
@@ -2030,14 +2052,17 @@ def phase_split_pipeline(cfg, gen):
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
     t0.record()
+    h0 = time.time()
     sols = [solve(p[0]) for p in probs[:REPS]]
+    host_ms = (time.time() - h0) * 1e3 / REPS   # the host's enqueue
     t1.record()
     torch.cuda.synchronize()
     counts = dict(kernels.launch_counts)                  # counts read
     ms = t0.elapsed_time(t1) / REPS
     conv = float(np.mean([s_.converged.float().mean().item() for s_ in sols]))
     log(f"  {ms:.3f} ms/solve, {B_MAIN / ms * 1e3:,.0f} QPs/s, converged "
-        f"fraction {conv:.5f}")
+        f"fraction {conv:.5f}; the host enqueues a solve in {host_ms:.3f} "
+        f"ms")
     log(f"  launch counts in the run: {counts}")
     for s_ in sols:
         for nm in ("x", "z", "s", "gap", "primal_residual", "dual_residual"):
@@ -2086,11 +2111,12 @@ def phase_split_pipeline(cfg, gen):
     ms_a = per_launch(lambda r: kernels.dense_barrier(
         *probs_k[r], iterations=DENSE_ITERS, tau=0.995))
     ms_b = per_launch(lambda r: kernels.dense_polish(*probs_k[r], *bars[r]))
-    # K3b on the xla prox stage's slice size (1024 QPs: 128 blocks on 132
-    # SMs, one block each).
+    # K3a and K3b on the xla prox stage's slice size (1024 QPs).
     n_s = 1024
     probs_s = [[a[:, :n_s].contiguous() for a in pr] for pr in probs_k]
     bars_s = [[a[:, :n_s].contiguous() for a in b_] for b_ in bars]
+    ms_a_s = per_launch(lambda r: kernels.dense_barrier(
+        *probs_s[r], iterations=DENSE_ITERS, tau=0.995))
     ms_b_s = per_launch(lambda r: kernels.dense_polish(*probs_s[r],
                                                        *bars_s[r]))
     t0h = time.time()
@@ -2105,6 +2131,7 @@ def phase_split_pipeline(cfg, gen):
     ops_a = B_MAIN * DENSE_ITERS * ops_dense_barrier_iteration()
     ops_b = sweeps * ops_dense_polish_sweep()
     b_a, by_a = bound_ms(4 * B_MAIN * (468 + 60), ops_a)
+    b_a_s, _ = bound_ms(4 * n_s * (468 + 60), ops_a // B_MAIN * n_s)
     b_b, by_b = bound_ms(4 * B_MAIN * (468 + 60 + 61), ops_b)
     log(f"  K3a: {ms_a:.4f} ms per launch (plain {plain_a:.0f} ms, bound "
         f"{b_a:.5f} ms, {by_a}, {ops_a // B_MAIN} operations per instance)")
@@ -2112,13 +2139,13 @@ def phase_split_pipeline(cfg, gen):
         f"{b_b:.5f} ms, {by_b}; {sweeps / B_MAIN:.3f} sweeps per instance "
         f"run); the two launches sum to {ms_a + ms_b:.4f} of the "
         f"{ms:.4f} ms solve")
-    log(f"  K3b at B = {n_s} (the xla prox slice): {ms_b_s:.4f} ms per "
-        f"launch")
+    log(f"  at B = {n_s} (the xla prox slice): K3a {ms_a_s:.4f} ms per "
+        f"launch (bound {b_a_s:.5f} ms), K3b {ms_b_s:.4f} ms per launch")
     return dict(
-        ms_per_solve=ms, qps=B_MAIN / ms * 1e3, converged=conv,
-        launches=counts, oracle_median=float(np.median(rel)),
+        ms_per_solve=ms, host_ms_per_solve=host_ms, qps=B_MAIN / ms * 1e3,
+        converged=conv, launches=counts, oracle_median=float(np.median(rel)),
         k3a=dict(ms=ms_a, plain_ms=plain_a, bound_ms=b_a, bound_by=by_a,
-                 operations=ops_a),
+                 operations=ops_a, ms_b1024=ms_a_s, bound_ms_b1024=b_a_s),
         k3b=dict(ms=ms_b, plain_ms=plain_b, bound_ms=b_b, bound_by=by_b,
                  operations=ops_b, mean_sweeps_run=sweeps / B_MAIN,
                  ms_b1024=ms_b_s))
@@ -2145,7 +2172,9 @@ def phase_prox_xla(cfg, gen, main_res):
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
     t0.record()
+    h0 = time.time()
     sols = [solve(s) for s in scen]
+    host_ms = (time.time() - h0) * 1e3 / REPS   # waits on the compactions too
     t1.record()
     torch.cuda.synchronize()
     counts = dict(kernels.launch_counts)                   # counts read
@@ -2153,7 +2182,8 @@ def phase_prox_xla(cfg, gen, main_res):
     conv = float(np.mean([s_.converged.float().mean().item() for s_ in sols]))
     log(f"  {ms:.3f} ms/solve-batch, {B_MAIN / ms * 1e3:,.0f} QPs/s, "
         f"converged fraction {conv:.5f} (the kernel backend, phase 4b: "
-        f"{main_res['ms_per_solve']:.3f} ms, {main_res['converged']:.5f})")
+        f"{main_res['ms_per_solve']:.3f} ms, {main_res['converged']:.5f}); "
+        f"the host returns from a solve in {host_ms:.3f} ms")
     log(f"  launch counts in the run: {counts}")
     for s_ in sols:
         for nm in ("x", "z", "s", "gap", "primal_residual", "dual_residual"):
@@ -2167,27 +2197,34 @@ def phase_prox_xla(cfg, gen, main_res):
           f"per solve: phase 4b's 4 K1 launches minus the prox launch, plus "
           f"{steps} x (K3a + K3b) on the {Bt}-instance slice")
 
-    # K3b on the prox slices of one more solve (after the counts were read;
-    # these launches are not the run's): each launch's inputs and outputs
-    # recorded, each held bitwise to the plain version on those inputs.
-    launches = []
-    launch_k3b = kernels.dense_polish
+    # K3a and K3b on the prox slices of one more solve (after the counts
+    # were read; these launches are not the run's): each launch's inputs and
+    # outputs recorded, each held bitwise to the plain version on those
+    # inputs.
+    launches = {"K3a": [], "K3b": []}
+    launch = {"K3a": kernels.dense_barrier, "K3b": kernels.dense_polish}
 
-    def recorded(*args):
-        out = launch_k3b(*args)
-        launches.append((args, out))
-        return out
+    def recorder(nm):
+        def run(*args, **kw):
+            out = launch[nm](*args, **kw)
+            launches[nm].append((args, kw, out))
+            return out
+        return run
 
-    kernels.dense_polish = recorded
+    kernels.dense_barrier, kernels.dense_polish = (recorder("K3a"),
+                                                   recorder("K3b"))
     try:
         solve(scen[0])
     finally:
-        kernels.dense_polish = launch_k3b
-    check(len(launches) == steps, f"{steps} K3b launches in a solve")
-    for k, (args, out) in enumerate(launches):
-        hold_dense_polish_bitwise(f"prox restart {k + 1} of {steps}, slice "
-                                  f"of {Bt}", out,
-                                  fi._dense_polish_plain(*args))
+        kernels.dense_barrier, kernels.dense_polish = (launch["K3a"],
+                                                       launch["K3b"])
+    for nm, plain, hold in (
+            ("K3a", fi._dense_barrier_plain, hold_dense_barrier_bitwise),
+            ("K3b", fi._dense_polish_plain, hold_dense_polish_bitwise)):
+        check(len(launches[nm]) == steps, f"{steps} {nm} launches in a solve")
+        for k, (args, kw, out) in enumerate(launches[nm]):
+            hold(f"prox restart {k + 1} of {steps}, slice of {Bt}", out,
+                 plain(*args, **kw))
 
     s0, sol0 = scen[0], sols[0]
     Q, c, G, h = pf.assemble_qp_fused_debug(
@@ -2207,8 +2244,9 @@ def phase_prox_xla(cfg, gen, main_res):
     check(np.median(rel) < 1e-6 and rel.max() < 1e-4,
           "xla prox path meets the float64 oracle's objective (median < "
           "1e-6)")
-    return dict(ms_per_solve=ms, qps=B_MAIN / ms * 1e3, converged=conv,
-                launches=counts, slice=Bt)
+    return dict(ms_per_solve=ms, host_ms_per_solve=host_ms,
+                qps=B_MAIN / ms * 1e3, converged=conv, launches=counts,
+                slice=Bt)
 
 
 def main():
@@ -2329,6 +2367,9 @@ def main():
                      f"dense solve; prox xla: {xla['slice']} instances, 6 "
                      f"per solve",
             "bitwise": dense_chk["bitwise"]})
+    dense_entries[0].update(ms_b1024=split["k3a"]["ms_b1024"],
+                            bound_ms_b1024=split["k3a"]["bound_ms_b1024"],
+                            geometry=dense_chk["geometry_k3a"])
     dense_entries[1].update(ms_b1024=split["k3b"]["ms_b1024"],
                             geometry=dense_chk["geometry"])
     for entry in (k1, k4_entry, k5_entry, k6_entry, *dense_entries):
@@ -2343,8 +2384,8 @@ def main():
     log(json.dumps({"main_path": main_res, "tick_path": tick_summary,
                     "mpc_tick_path": mpc_summary,
                     "split_pipeline": {k: split[k] for k in (
-                        "ms_per_solve", "qps", "converged", "launches",
-                        "oracle_median")},
+                        "ms_per_solve", "host_ms_per_solve", "qps",
+                        "converged", "launches", "oracle_median")},
                     "prox_xla_path": xla,
                     "build_seconds": build_s,
                     "wall_seconds": time.time() - t_start}))

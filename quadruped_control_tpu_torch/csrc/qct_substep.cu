@@ -101,15 +101,9 @@ extern "C" int qct_substep_serial(const float* state, const float* a,
   return (int)cudaGetLastError();
 }
 
-#ifdef QS_CLOCKS
-// qs_clocks of the launches since the last call (2048 words), then zeroed.
+#ifdef QCT_CLOCKS
 extern "C" int qct_substep_clocks(unsigned long long* out) {
-  cudaError_t e = cudaMemcpyFromSymbol(out, qs_clocks, sizeof(qs_clocks));
-  if (e != cudaSuccess) return (int)e;
-  void* sym = nullptr;
-  e = cudaGetSymbolAddress(&sym, qs_clocks);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaMemset(sym, 0, sizeof(qs_clocks));
+  return qct_clocks_read(out);
 }
 #endif
 

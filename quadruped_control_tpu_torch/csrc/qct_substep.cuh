@@ -723,28 +723,10 @@ struct QSLane {
 #ifdef __CUDACC__
 #define QS_WARP_SYNC() __syncwarp()
 #endif
-#if defined(QS_CLOCKS) && defined(__CUDACC__)
-// A build with -DQS_CLOCKS (scripts/torch_substep_widths.py) adds up, in
-// qs_clocks[line], the cycles from the end of the previous section to the
-// end of the section that starts at that line, as thread 0 of block 0 sees
-// them over a launch.
-__device__ unsigned long long qs_clocks[2048];
-__device__ long long qs_clock_prev;
-__device__ __forceinline__ void qs_clock(int line) {
-  if (blockIdx.x == 0 && threadIdx.x == 0) {
-    const long long t = clock64();
-    if (line > 0) qs_clocks[line] += (unsigned long long)(t - qs_clock_prev);
-    qs_clock_prev = t;
-  }
-}
-#define QS_CLOCK(line) qs_clock(line)
-#else
-#define QS_CLOCK(line) ((void)0)
-#endif
 #ifdef QS_WARP_SYNC
 #define QS_PHASE(lane)                              \
   for (int lane = g.lane, qs_once_ = 1; qs_once_; \
-       qs_once_ = 0, QS_WARP_SYNC(), QS_CLOCK(__LINE__))
+       qs_once_ = 0, QS_WARP_SYNC(), QCT_CLOCK(__LINE__))
 #else
 #ifndef QS_HOST_LANES
 #define QS_HOST_LANES(lane) for (int lane = 0; lane < QS_G; ++lane)
@@ -858,7 +840,7 @@ QCT_DEV void qs_stage_out(const QctSubIO& io, int B, int slot0, int nr,
 // n_substeps substeps; the new state in S.st on return.
 QCT_DEV void substep_lanes(QSShared& S, const QctSubParams& P,
                            int n_substeps, float h, const QSLane& g) {
-  QS_CLOCK(0);
+  QCT_CLOCK(0);
   // Prologue. The sines / cosines of q (the first substep's too).
   QS_PHASE(lane) {
     QS_ITEMS(k, own, lane, 12) {

@@ -197,9 +197,10 @@ def mpc_launch_geometry(B: int, layout: MpcLayout) -> MpcGeometry:
 
 class FusedLayout(NamedTuple):
     """What a build of a kernel that runs one QP on a group of lanes reports
-    (the fused kernel's csrc/qct_fused.cuh ``qf_layout``, the dense polish's
-    csrc/qct_dense_ipm.cuh ``qd_layout``): lanes per QP, threads a block at
-    most (its ``__launch_bounds__``), words of shared memory per QP."""
+    (the fused kernel's csrc/qct_fused.cuh ``qf_layout``, the dense
+    barrier's and polish's csrc/qct_dense_ipm.cuh ``qdb_layout`` and
+    ``qd_layout``): lanes per QP, threads a block at most (its
+    ``__launch_bounds__``), words of shared memory per QP."""
 
     lanes: int
     max_threads: int
@@ -208,8 +209,8 @@ class FusedLayout(NamedTuple):
 
 class FusedGeometry(NamedTuple):
     """Launch of a lane-group QP kernel (the fused kernel, the dense
-    polish): QP slot ``blockIdx.x * qps_per_block + threadIdx.x // lanes``
-    (slots past B run along and write no output)."""
+    barrier and polish): QP slot ``blockIdx.x * qps_per_block +
+    threadIdx.x // lanes`` (slots past B run along and write no output)."""
 
     blocks: int
     threads: int
@@ -218,9 +219,10 @@ class FusedGeometry(NamedTuple):
 
 
 def fused_launch_geometry(B: int, layout: FusedLayout) -> FusedGeometry:
-    """The fused kernel's launch for B QPs: blocks of the build's full
-    thread count, ``layout.lanes`` threads and ``layout.shared_words`` of
-    shared memory per QP. Raises where such a block does not fit a Hopper
+    """The fused kernel's launch for B QPs (and the dense barrier's, K3a, on
+    :func:`dense_barrier_layout`): blocks of the build's full thread count,
+    ``layout.lanes`` threads and ``layout.shared_words`` of shared memory
+    per QP. Raises where such a block does not fit a Hopper
     block's shared memory or is not made of whole warps."""
     qps = layout.max_threads // layout.lanes
     threads = qps * layout.lanes
@@ -421,15 +423,17 @@ def load():
             lib.qct_fused_layout.restype = ci
             lib.qct_dense_polish_layout.argtypes = [vp]
             lib.qct_dense_polish_layout.restype = ci
+            lib.qct_dense_barrier_layout.argtypes = [vp]
+            lib.qct_dense_barrier_layout.restype = ci
             for fn in ("qct_mpc_fn", "qct_fused_barrier_fn",
-                       "qct_fused_polish_fn", "qct_dense_polish_fn",
-                       "qct_substep_fn"):
+                       "qct_fused_polish_fn", "qct_dense_barrier_fn",
+                       "qct_dense_polish_fn", "qct_substep_fn"):
                 getattr(lib, fn).argtypes = []
                 getattr(lib, fn).restype = vp
             lib.qct_occupancy.argtypes = [vp, ci, ci, vp]
             lib.qct_occupancy.restype = ci
             lib.qct_dense_barrier.argtypes = [vp] * 7 + [
-                ci, ci, ctypes.c_float, vp]
+                ci, ci, ctypes.c_float, ci, ci, ci, vp]
             lib.qct_dense_barrier.restype = ci
             lib.qct_dense_polish.argtypes = [vp] * 11 + [ci, ci, ci, ci,
                                                           vp]
@@ -758,6 +762,27 @@ def fused_occupancy(B, polish=True):
 
 
 @functools.cache
+def dense_barrier_layout() -> FusedLayout:
+    """The built dense barrier kernel's (K3a) :class:`FusedLayout`."""
+    lib = load()
+    out = (ctypes.c_int * 3)()
+    _check(lib, lib.qct_dense_barrier_layout(out),
+           "qct_dense_barrier_layout")
+    return FusedLayout(*out)
+
+
+def dense_barrier_occupancy(B):
+    """What the card makes of the dense barrier kernel's (K3a) launch for B
+    QPs: dict of the build's layout, the geometry, the resident blocks per
+    SM and the registers and local (stack) bytes per thread."""
+    layout = dense_barrier_layout()
+    geo = fused_launch_geometry(B, layout)
+    return dict(layout._asdict(), **geo._asdict(),
+                **_occupancy("qct_dense_barrier_fn", geo.threads,
+                             geo.shared_bytes))
+
+
+@functools.cache
 def dense_polish_layout() -> FusedLayout:
     """The built dense polish kernel's (K3b) :class:`FusedLayout`."""
     lib = load()
@@ -809,18 +834,22 @@ def _dense_problem(Qp, cp, Gp, hp):
 def dense_barrier(Qp, cp, Gp, hp, *, iterations, tau):
     """Launch the dense barrier kernel (K3a) once on the equilibrated ``(k,
     B)`` CUDA tensors Q (144, B), c (12, B), G (288, B), h (24, B). Returns
-    the best iterate (x (12, B), s (24, B), z (24, B))."""
+    the best iterate (x (12, B), s (24, B), z (24, B)). The launch takes
+    :func:`fused_launch_geometry` on :func:`dense_barrier_layout` (a group
+    of lanes per QP, its problem, iterate and 12 x 12 factor in shared
+    memory)."""
     device, B = _dense_problem(Qp, cp, Gp, hp)
     lib = load()
     x = torch.empty((12, B), dtype=torch.float32, device=device)
     s = torch.empty((24, B), dtype=torch.float32, device=device)
     z = torch.empty((24, B), dtype=torch.float32, device=device)
+    geo = fused_launch_geometry(B, dense_barrier_layout())
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.qct_dense_barrier(
             Qp.data_ptr(), cp.data_ptr(), Gp.data_ptr(), hp.data_ptr(),
             x.data_ptr(), s.data_ptr(), z.data_ptr(), B, int(iterations),
-            float(tau), stream)
+            float(tau), geo.blocks, geo.threads, geo.shared_bytes, stream)
     _check(lib, rc, "qct_dense_barrier")
     launch_counts["qct_dense_barrier"] += 1
     return x, s, z

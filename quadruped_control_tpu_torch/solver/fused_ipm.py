@@ -36,9 +36,9 @@ tensor by tensor where the kernel divides once. A wrapper takes the plain
 version only for tensors that lie on the CPU; for CUDA tensors it launches
 the kernel or raises.
 
-Layout: structure of arrays ``(k, B)`` (K3a runs one instance per CUDA
-thread, K3b one per group of 16 lanes after its block has staged the
-problems in shared memory), component-major so that accesses coalesce: ``Q (144, B)``
+Layout: structure of arrays ``(k, B)`` (K3a and K3b each run one instance
+per group of 16 lanes after the block has staged the problems in shared
+memory), component-major so that the staging loads coalesce: ``Q (144, B)``
 (row-major ``i * 12 + j``), ``c (12, B)``, ``G (288, B)`` (``r * 12 + j``),
 ``h (24, B)``, float32; any B (the kernels mask the ragged edge). The TPU
 kernels' ``(nb, k, 8, 128)`` tile layout has no counterpart
@@ -105,7 +105,8 @@ def _matvec(A, v):
 
 # ---------------------------------------------------------------------------
 # K3a: the barrier (plain PyTorch version of csrc/qct_dense_ipm.cuh
-# dense_barrier_instance and of pallas_ipm.py::_kernel)
+# dense_barrier_lanes, whose serial form is dense_barrier_instance, and of
+# pallas_ipm.py::_kernel)
 # ---------------------------------------------------------------------------
 
 def _dense_barrier_plain(Qp, cp, Gp, hp, *, iterations: int, tau: float):

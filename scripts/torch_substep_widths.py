@@ -24,7 +24,7 @@ serial), in one process; then the port's width and the serial body at 0
 (the torque map and factor alone), 1, 5, 10 and 20 substeps. Every timed
 launch has its arguments made ahead, so that the host's share of a launch
 (a few microseconds) stays below its device time. Last, a fourth build at 8
-lanes with -DQS_CLOCKS prints the cycles of each lane section of one robot
+lanes with -DQCT_CLOCKS prints the cycles of each lane section of one robot
 (thread 0 of block 0) over a 10-substep launch: where the kernel's time
 goes.
 """
@@ -63,12 +63,12 @@ SEED = 50
 
 def build(width, out_dir, clocks=False):
     """Start nvcc on K5's sources (and the occupancy and error entries) for
-    one width (with the per-section clocks: -DQS_CLOCKS); returns (library
+    one width (with the per-section clocks: -DQCT_CLOCKS); returns (library
     path, process)."""
     lib = out_dir / f"libqct_substep_{width}{'_clocks' if clocks else ''}.so"
     cmd = [kernels._nvcc(), *kernels._NVCC_FLAGS, "-shared",
            f"-DQS_G={width}", "-Xptxas", "-v", "-o", str(lib)] + (
-               ["-DQS_CLOCKS"] if clocks else []) + [
+               ["-DQCT_CLOCKS"] if clocks else []) + [
                str(kernels._CSRC / f) for f in (
                    "qct_substep.cu", "qct_mpc.cu", "qct_assemble.cu")]
     return lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -241,7 +241,7 @@ def main():
         ser = timed(lean(ref, state, extras, params, h, n, serial=True))
         print(f" 8 lanes, {n:2d} substeps: {ms:.4f} ms per launch (serial "
               f"body {ser:.4f} ms)")
-    # The sections' cycles (thread 0 of block 0, -DQS_CLOCKS): each
+    # The sections' cycles (thread 0 of block 0, -DQCT_CLOCKS): each
     # section's line in the header, its first statement, its share.
     cyc = (ctypes.c_ulonglong * 2048)()
     launch(clk, state, extras, params, h)
@@ -254,7 +254,7 @@ def main():
     src = (kernels._CSRC / "qct_substep.cuh").read_text().splitlines()
     total = sum(cyc)
     print(f" 8 lanes, {N_SUBSTEPS} substeps, sections of one robot (thread 0 "
-          f"of block 0, -DQS_CLOCKS): {total} cycles in all")
+          f"of block 0, -DQCT_CLOCKS): {total} cycles in all")
     for line in range(2048):
         if cyc[line]:
             print(f"   line {line:4d} {src[line].strip()[:48]:48s} "

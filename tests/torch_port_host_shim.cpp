@@ -6,17 +6,19 @@
 // arithmetic can be held against the plain PyTorch versions on a machine
 // without a CUDA compiler (tests/test_torch_kernel_sources_host.py,
 // tests/test_torch_mpc_lanes.py, tests/test_torch_fused_lanes.py,
-// tests/test_torch_dense_lanes.py, tests/test_torch_substep_lanes.py).
+// tests/test_torch_dense_lanes.py, tests/test_torch_dense_barrier_lanes.py,
+// tests/test_torch_substep_lanes.py).
 //
-// Built with -DQCT_LANE_PROGRAM, the four lane-group kernels, K6 (MPC), K1
-// (fused GRF-QP), K3b (dense polish) and K5 (substeps), run instead as the
-// card runs them (host_mpc_riccati_warps, host_fused_solve_warps,
-// host_dense_polish_warps, host_substep_warps): the 32 lanes of a warp (two
-// robot or QP slots of 16 lanes, or 32 / QS_G robot slots of QS_G lanes)
-// are coroutines, each one call of the kernel's body with its own g.lane,
-// its own lane variables and its slot's shared state. A sync or a
-// shuffle hands over to the next lane, so each lane runs alone from one sync
-// to the next: lane 0 first, or lane 31 first with -DQCT_REVERSE_LANES.
+// Built with -DQCT_LANE_PROGRAM, the five lane-group kernels, K6 (MPC), K1
+// (fused GRF-QP), K3a (dense barrier), K3b (dense polish) and K5
+// (substeps), run instead as the card runs them (host_mpc_riccati_warps,
+// host_fused_solve_warps, host_dense_barrier_warps, host_dense_polish_warps,
+// host_substep_warps): the 32 lanes of a warp (two robot or QP slots of 16
+// lanes, or 32 / QS_G robot slots of QS_G lanes) are coroutines, each one
+// call of the kernel's body with its own g.lane, its own lane variables and
+// its slot's shared state. A sync or a shuffle hands over to the next lane,
+// so each lane runs alone from one sync to the next: lane 0 first, or lane
+// 31 first with -DQCT_REVERSE_LANES.
 // Where a sync is missing, a lane reads another lane's write before it is
 // made in one order and after it in the other; so it does where a lane
 // reads, inside one section, what another lane of that section writes.
@@ -149,6 +151,24 @@ extern "C" void host_dense_polish(const float* Q, const float* c,
     qd_stage_in(io, B, i, 1, &W, 0, 1);
     dense_polish_lanes(W, g);
     qd_stage_out(io, B, i, 1, &W, 0, 1);
+  }
+}
+
+// K3a's lane body over B QPs, the lanes of each section in a loop; shared
+// state starts NaN, each QP staged and written back as one block of one
+// thread would.
+extern "C" void host_dense_barrier_lanes(const float* Q, const float* c,
+                                         const float* G, const float* h,
+                                         float* x, float* s, float* z, int B,
+                                         int iterations, float tau) {
+  QctDenseIO io = {Q, c, G, h, nullptr, nullptr, nullptr, x, s, z, nullptr};
+  static QDBShared W;
+  const QFLane g = {0};
+  for (int i = 0; i < B; ++i) {
+    memset(&W, 0xff, sizeof(W));
+    qd_stage_in<QDBShared, QDB_IN>(io, B, i, 1, &W, 0, 1);
+    dense_barrier_lanes(W, iterations, tau, g);
+    qd_stage_out<QDBShared, QDB_OUT>(io, B, i, 1, &W, 0, 1);
   }
 }
 #else
@@ -344,6 +364,46 @@ extern "C" int host_dense_polish_warps(const float* Q, const float* c,
 }
 
 static struct {
+  int iterations;
+  float tau;
+  QDBShared* W;
+} qdb_warp_;
+
+static void qdb_lane_main(int l) {
+  QFLane g;
+  g.lane = l % QF_G;
+  dense_barrier_lanes(qdb_warp_.W[l / QF_G], qdb_warp_.iterations,
+                      qdb_warp_.tau, g);
+}
+
+// K3a over B QPs, a warp (two QP slots) at a time, each pair staged and
+// written back by the warp's 32 threads as on the card. Returns 0, or -1
+// where the lanes of a warp did not wait at the same sync.
+extern "C" int host_dense_barrier_warps(const float* Q, const float* c,
+                                        const float* G, const float* h,
+                                        float* x, float* s, float* z, int B,
+                                        int iterations, float tau) {
+  QctDenseIO io = {Q, c, G, h, nullptr, nullptr, nullptr, x, s, z, nullptr};
+  char* stacks = (char*)malloc(LANE_WARP * lane_stack_);
+  static QDBShared W[LANE_WARP / QF_G];
+  const int nq = LANE_WARP / QF_G;
+  int rc = 0;
+  for (int slot = 0; slot < B && rc == 0; slot += nq) {
+    memset(W, 0xff, sizeof(W));  // shared memory starts undefined: NaN
+    for (int t = 0; t < LANE_WARP; ++t)
+      qd_stage_in<QDBShared, QDB_IN>(io, B, slot, nq, W, t, LANE_WARP);
+    qdb_warp_.iterations = iterations;
+    qdb_warp_.tau = tau;
+    qdb_warp_.W = W;
+    rc = lane_run_warp(qdb_lane_main, stacks, lane_stack_);
+    for (int t = 0; t < LANE_WARP; ++t)
+      qd_stage_out<QDBShared, QDB_OUT>(io, B, slot, nq, W, t, LANE_WARP);
+  }
+  free(stacks);
+  return rc;
+}
+
+static struct {
   const QctSubParams* p;
   int n_substeps;
   float h;
@@ -393,8 +453,11 @@ extern "C" void host_fused_layout(int* out) { qf_layout(out); }
 
 extern "C" void host_dense_layout(int* out) { qd_layout(out); }
 
+extern "C" void host_dense_barrier_layout(int* out) { qdb_layout(out); }
+
 extern "C" void host_substep_layout(int* out) { qs_layout(out); }
 
+// K3a's serial body (one QP per thread), the reference of its lane body.
 extern "C" void host_dense_barrier(const float* Q, const float* c,
                                    const float* G, const float* h, float* x,
                                    float* s, float* z, int B, int iterations,
