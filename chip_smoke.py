@@ -20,9 +20,10 @@ Then the second main path, the closed-loop whole-body tick (commander-pre K4
 -> GRF QP K1 -> physics substeps K5, sim/fused_tick.py): K4 and K5 against
 their plain versions at B = 4096 on synthetic mid-walk states (K4 over 8
 chained ticks with and without its options; K5 in three configurations with
-two poisoned lanes, and bitwise its serial body, qct_substep_serial, there,
-on a ragged batch and on every whole tick's own inputs of both loops; K5's
-geometry, resident blocks, registers and stack), 600 ticks of stand-up from
+two poisoned lanes), and bitwise their serial bodies (qct_commander_serial,
+qct_substep_serial) there, on a ragged batch with poisoned lanes and on
+every whole tick's own inputs of both loops; K4's and K5's geometry,
+resident blocks, registers and stack; 600 ticks of stand-up from
 the laying pose and 600 ticks
 of a 0.2 m/s trot at B = 4096 with behaviour limits and exactly 3 launches
 per tick (4 with the certification tail), the first ticks also through the
@@ -32,7 +33,8 @@ Then the third main path, the receding-horizon MPC tick (commander-pre K4
 with its MPC block -> MPC kernel K6 -> substeps K5) in its recommended
 configuration (mit_cheetah_whole_body_config, N = 8, mpc_dt = 0.03, warm
 start, 8 iterations, B = 4096 robots whose start poses differ by 1e-4 m):
-K4's MPC block against its plain version over 8 chained ticks, 600 ticks of
+K4's MPC block against its plain version and bitwise its serial body over
+8 chained ticks and a ragged poisoned batch, 600 ticks of
 stand-up and 900 of a 0.2 m/s trot (chunked, the warm carry threaded
 through) with exactly 3 launches per tick, the stand-up limits held and the
 trot reported; the same with 15 cold iterations, held to the stand-up and
@@ -208,7 +210,7 @@ def event_ms(fn, reps):
 def graph_ms(fn, reps):
     """Mean device time of ``fn()`` over ``reps`` calls captured in one CUDA
     graph and replayed, after one warm-up call: for a launch shorter than
-    its wrapper's host work (K4, K5 at B = 4096), where back-to-back calls
+    its wrapper's host work (K4, K5 at B = 4096; K2), where back-to-back calls
     would time the host. The calls made while capturing add to the launch
     counts; the replay does not."""
     fn()
@@ -573,8 +575,15 @@ def phase_main_shapes(cfg, gen):
             f"({ops / Bm:.0f} operations/instance, {sweeps_run / Bm:.2f} "
             f"sweeps/instance run)")
 
-    # K2 at the full batch.
+    # K2 at the full batch: its device time through a CUDA graph (the
+    # wrapper's four allocations and checks take longer than the launch),
+    # and the CUDA-event time of back-to-back calls beside it; without and
+    # with equilibration.
+    akw_eq = dict(akw, equilibrated=True)
+    g2 = graph_ms(lambda: kernels.assemble(*inp, **akw), 20)
     ms2 = event_ms(lambda: kernels.assemble(*inp, **akw), 10)
+    g2e = graph_ms(lambda: kernels.assemble(*inp, **akw_eq), 20)
+    ms2e = event_ms(lambda: kernels.assemble(*inp, **akw_eq), 10)
     t0 = time.time()
     P = pf._assembly_plain(*inp, **akw)
     torch.cuda.synchronize()
@@ -583,10 +592,14 @@ def phase_main_shapes(cfg, gen):
     nbytes2 = 4 * B_MAIN * (26 + 468)
     ops2 = B_MAIN * _ASSEMBLE
     b2 = max(nbytes2 / PEAK_BYTES, ops2 / PEAK_F32_FLOPS) * 1e3
-    log(f"  K2: B {B_MAIN}, kernel {ms2:.3f} ms, plain {plain2:.0f} ms, "
-        f"bound {b2:.4f} ms (bytes), max abs err vs plain {err2:.2e}")
-    k2 = dict(ms=ms2, plain_ms=plain2, bound_ms=b2, bound_by="bytes",
-              max_abs_err=err2, bytes=nbytes2)
+    log(f"  K2: B {B_MAIN}, kernel {g2:.4f} ms through a CUDA graph "
+        f"({b2 / g2:.3f} of its bound; {ms2:.4f} ms event-timed), "
+        f"equilibrated {g2e:.4f} ms ({ms2e:.4f} event-timed); plain "
+        f"{plain2:.0f} ms, bound {b2:.4f} ms (bytes), max abs err vs plain "
+        f"{err2:.2e}")
+    k2 = dict(ms=g2, plain_ms=plain2, bound_ms=b2, bound_by="bytes",
+              max_abs_err=err2, bytes=nbytes2, event_ms=ms2,
+              ms_equilibrated=g2e, event_ms_equilibrated=ms2e)
     return out, k2
 
 
@@ -769,8 +782,77 @@ def hold_commander_to_plain(name, kern, plain):
     return worst
 
 
+def commander_serial(consts, state, carry, cmd, **kw):
+    """K4's serial body (one instance per thread, the kernel's first form;
+    ``kernels.commander_serial``) with commander_pre_packed's options: the
+    reference K4 is held to bit for bit."""
+    return kernels.commander_serial(state, carry, cmd, consts.params(
+        kw.get("contact_gate", 0.0), kw.get("raibert_cmd_symmetric", False),
+        kw.get("mpc_horizon", 0), kw.get("mpc_dt", 0.0)))
+
+
+def hold_commander_to_serial(name, kern, serial):
+    """Fail unless every output of K4 (the MPC block too) is bitwise its
+    serial body's, a NaN equal to any NaN."""
+    if len(kern) != len(serial):
+        fail(f"K4 {name}: {len(kern)} outputs, its serial body {len(serial)}")
+    for nm, a, b_ in zip(_K4_NAMES + ("mpc block",), kern, serial):
+        same = ((a.view(torch.int32) == b_.view(torch.int32))
+                | (a.isnan() & b_.isnan()))
+        if not bool(same.all()):
+            lanes = torch.nonzero(~same.all(0)).flatten().tolist()
+            fail(f"K4 {name}: {nm} not bitwise its serial body on "
+                 f"{len(lanes)} lanes (first {lanes[:8]})")
+
+
+# The ragged batch of the K4 holds: lane 3 has a NaN body rate and a NaN
+# thigh angle, lane 17 an infinite forward command, lane 29 a base 3 m up
+# with straight knees (every swing target out of reach: the IK straightens
+# the knee, and the Jacobian at q_ref is singular).
+B_RAGGED = 1061
+
+
+def hold_commander_poisoned(name, consts, state, carry, cmd, **kw):
+    """K4 on the first B_RAGGED lanes of (state, carry, cmd) with the
+    poisoned lanes, bitwise its serial body."""
+    st, ca, cm = (a[:, :B_RAGGED].contiguous() for a in (state, carry, cmd))
+    st[13, 3] = float("nan")
+    st[34, 3] = float("nan")
+    cm[0, 17] = float("inf")
+    st[11, 29] = 3.0
+    st[[32, 35, 38, 41], 29] = 0.0
+    kern = fcmd.commander_pre_packed(st, ca, cm, consts=consts, **kw)
+    serial = commander_serial(consts, st, ca, cm, **kw)
+    torch.cuda.synchronize()
+    hold_commander_to_serial(f"{name} (ragged B = {B_RAGGED}, poisoned "
+                             f"lanes)", kern, serial)
+    check(bool(kern[1][3:, 3].isnan().all())
+          and not bool(torch.isfinite(kern[1][:, 17]).all())
+          and bool((kern[8][2::3, 29] == 0).any()),
+          f"K4 {name}: the poisoned lanes (a NaN rhs, a non-finite rhs, a "
+          f"straight knee at q_ref)")
+
+
+def commander_geometry(B):
+    """K4's launch for B instances on the card, and its serial body's:
+    geometry, resident blocks per SM, registers, stack."""
+    occ = kernels.commander_occupancy(B)
+    ser = occ["serial"]
+    log(f"  K4 at B = {B}: {occ['blocks']} blocks of {occ['threads']} "
+        f"threads ({occ['robots_per_block']} instances, {occ['lanes']} "
+        f"lanes each); "
+        f"{occ['blocks_per_sm']} blocks per SM, {occ['registers']} "
+        f"registers, {occ['local_bytes']} B of stack. Its serial body: "
+        f"{ser['blocks']} blocks of {ser['threads']} threads, "
+        f"{ser['blocks_per_sm']} blocks per SM, {ser['registers']} "
+        f"registers, {ser['local_bytes']} B of stack")
+    check(occ["blocks_per_sm"] >= 1, "K4's block fits an SM")
+    return occ
+
+
 def phase_commander_vs_plain(cfg):
-    log(f"== phase 5: K4 (commander-pre) vs its plain version on the card, "
+    log(f"== phase 5: K4 (commander-pre) vs its serial body (bitwise) and "
+        f"its plain version on the card, "
         f"B = {B_TICK}, 8 chained ticks per option set")
     consts = fcmd.CommanderConsts(cfg, 1.0 / cfg.frequency)
     worst = 0.0
@@ -783,8 +865,11 @@ def phase_commander_vs_plain(cfg):
             kw = dict(contact_gate=gate, raibert_cmd_symmetric=sym)
             kern = fcmd.commander_pre_packed(state, carry, cmd,
                                              consts=consts, **kw)
+            serial = commander_serial(consts, state, carry, cmd, **kw)
             plain = fcmd.commander_pre_plain(consts, state, carry, cmd, **kw)
             torch.cuda.synchronize()
+            hold_commander_to_serial(f"gate={gate} sym={sym} tick {t}", kern,
+                                     serial)
             worst = max(worst, hold_commander_to_plain(
                 f"gate={gate} sym={sym} tick {t}", kern, plain))
             new = kern[7]
@@ -794,13 +879,17 @@ def phase_commander_vs_plain(cfg):
                 ((new[2:6] < 0.5) & (carry[2:6] > 0.5)).sum())
             crossed["replans"] += int((new[7:91] != carry[7:91]).any(0).sum())
             carry = new   # both sides continue from the kernel's carry
-        log(f"  contact_gate={gate} raibert_cmd_symmetric={sym}: within "
-            f"tolerance over 8 ticks; crossed {crossed}")
+        hold_commander_poisoned(f"gate={gate} sym={sym}", consts, state,
+                                carry, cmd, **kw)
+        log(f"  contact_gate={gate} raibert_cmd_symmetric={sym}: bitwise its "
+            f"serial body and within tolerance of the plain version over 8 "
+            f"ticks, bitwise its serial body on the ragged poisoned batch; "
+            f"crossed {crossed}")
         check(all(v > 0 for v in crossed.values()),
               "the ticks crossed the standing latch, the gait start, "
               "stance->swing edges and replans")
     log(f"  K4 worst abs err of a continuous output: {worst:.3e}")
-    return worst
+    return worst, commander_geometry(B_TICK)
 
 
 # K5 against its plain version after N_SUBSTEPS substeps: the plain version
@@ -984,8 +1073,10 @@ def tick_vs_plain(name, tick, model, cfg, contact, state_p, carry_p, warm_p,
     base = dict(s_diag=tuple(bal.s_diag), w_diag=float(bal.w_diag))
     dt = tick.consts.dt
     kern4 = tick.pre(state_p, carry_p, cmd_p)
+    serial4 = commander_serial(tick.consts, state_p, carry_p, cmd_p)
     plain4 = fcmd.commander_pre_plain(tick.consts, state_p, carry_p, cmd_p)
     torch.cuda.synchronize()
+    hold_commander_to_serial(name, kern4, serial4)
     e4 = hold_commander_to_plain(name, kern4, plain4)
     qp_in = tuple(kern4[:6])
     sched = dict(iterations=6, polish=True, polish_sweeps=8, polish_refine=4)
@@ -1002,7 +1093,8 @@ def tick_vs_plain(name, tick, model, cfg, contact, state_p, carry_p, warm_p,
     torch.cuda.synchronize()
     hold_substep_to_serial(name, kern5, serial5)
     e5 = hold_substep_to_plain(name, kern5, plain5)
-    log(f"  {name}: K4 within tolerance (max {e4:.2e}), QP objective within "
+    log(f"  {name}: K4 bitwise its serial body and within tolerance of the "
+        f"plain version (max {e4:.2e}), QP objective within "
         f"the 1e-6 bar (max|dx| {e1:.2e}), state after the tick bitwise K5's "
         f"serial body and within tolerance of the plain version (max "
         f"{e5:.2e})")
@@ -1112,7 +1204,8 @@ def phase_tick(cfg):
     check(counts["qct_commander_pre"] == 600
           and counts["qct_fused_solve"] == 600
           and counts["qct_substep"] == 600 and counts["qct_assemble"] == 0
-          and counts["qct_substep_serial"] == 0,
+          and counts["qct_substep_serial"] == 0
+          and counts["qct_commander_serial"] == 0,
           "exactly 3 launches per tick (K4, K1, K5)")
     launches = dict(counts)
 
@@ -1139,7 +1232,8 @@ def phase_tick(cfg):
     check(counts2["qct_commander_pre"] == 600
           and counts2["qct_fused_solve"] == 600
           and counts2["qct_substep"] == 600
-          and counts2["qct_substep_serial"] == 0,
+          and counts2["qct_substep_serial"] == 0
+          and counts2["qct_commander_serial"] == 0,
           "exactly 3 launches per tick in the trot")
     for k_ in launches:
         launches[k_] += counts2[k_]
@@ -1162,7 +1256,8 @@ def phase_tick(cfg):
     check(counts3["qct_commander_pre"] == 100
           and counts3["qct_fused_solve"] == 200
           and counts3["qct_substep"] == 100
-          and counts3["qct_substep_serial"] == 0,
+          and counts3["qct_substep_serial"] == 0
+          and counts3["qct_commander_serial"] == 0,
           "exactly 4 launches per tick with the tail (K4, K1, K1, K5)")
     check(conv3 > 0.93, "tail run: QP converged fraction > 0.93 (a 6-iteration "
           "barrier with no polish, then the tail on the worst quarter)")
@@ -1225,12 +1320,15 @@ def phase_tick_times(cfg, tick, model, contact, res, res2, cmd):
 
     k4 = tick.pre(state_p, carry_p, cmd_p)
     ms4 = graph_ms(lambda: tick.pre(state_p, carry_p, cmd_p), 50)
+    ms4s = graph_ms(lambda: commander_serial(tick.consts, state_p, carry_p,
+                                             cmd_p), 50)
     t0 = time.time()
     fcmd.commander_pre_plain(tick.consts, state_p, carry_p, cmd_p)
     torch.cuda.synchronize()
     plain4 = (time.time() - t0) * 1e3
     b4, by4 = bound_ms(4 * B * (42 + 95 + 6 + 144), B * ops_commander(0.0))
-    out["k4"] = dict(ms=ms4, plain_ms=plain4, bound_ms=b4, bound_by=by4)
+    out["k4"] = dict(ms=ms4, plain_ms=plain4, bound_ms=b4, bound_by=by4,
+                     serial_ms=ms4s)
 
     qp_in = tuple(k4[:6])
     sched = dict(iterations=6, polish=True, polish_sweeps=8, polish_refine=4)
@@ -1270,8 +1368,8 @@ def phase_tick_times(cfg, tick, model, contact, res, res2, cmd):
                      serial_ms=ms5s)
 
     in_kernels = ms4 + ms1 + ms5
-    log(f"  K4: {ms4:.4f} ms (plain {plain4:.0f} ms, bound {b4:.5f} ms, "
-        f"{by4})")
+    log(f"  K4: {ms4:.4f} ms (its serial body {ms4s:.4f} ms, plain "
+        f"{plain4:.0f} ms, bound {b4:.5f} ms, {by4})")
     log(f"  K1 warm-6 + polish: {ms1:.4f} ms (plain {plain1:.0f} ms, bound "
         f"{b1:.5f} ms, {by1}; sweeps run mean "
         f"{out['k1_tick']['mean_sweeps_run']:.2f} max "
@@ -1406,8 +1504,10 @@ def phase_commander_mpc_vs_plain(cfg):
         kw = dict(mpc_horizon=MPC_N, mpc_dt=MPC_DT)
         kern = fcmd.commander_pre_packed(state, carry, cmd, consts=consts,
                                          **kw)
+        serial = commander_serial(consts, state, carry, cmd, **kw)
         plain = fcmd.commander_pre_plain(consts, state, carry, cmd, **kw)
         torch.cuda.synchronize()
+        hold_commander_to_serial(f"MPC tick {t}", kern, serial)
         worst = max(worst, hold_commander_to_plain(f"MPC tick {t}", kern[:9],
                                                    plain[:9]))
         sched = slice(25, 25 + 4 * MPC_N)
@@ -1418,8 +1518,12 @@ def phase_commander_mpc_vs_plain(cfg):
             fail(f"K4 MPC tick {t}: MPC block max abs err {err:.3e}")
         worst = max(worst, err)
         carry = kern[7]
-    log(f"  K4 with the MPC block within tolerance over 8 ticks (block rtol "
-        f"1e-5 atol 1e-5, schedule exact); worst abs err {worst:.3e}")
+    hold_commander_poisoned(f"MPC block N = {MPC_N}", consts, state, carry,
+                            cmd, mpc_horizon=MPC_N, mpc_dt=MPC_DT)
+    log(f"  K4 with the MPC block bitwise its serial body over 8 ticks and on "
+        f"the ragged poisoned batch, within tolerance of the plain version "
+        f"(block rtol 1e-5 atol 1e-5, schedule exact); worst abs err "
+        f"{worst:.3e}")
     return worst
 
 
@@ -1440,10 +1544,13 @@ def mpc_tick_vs_plain(name, cfg, tick, state_p, carry_p, warm_p, cmd_p,
     the tick's own forces either way."""
     dt = tick.consts.dt
     k4 = tick.pre(state_p, carry_p, cmd_p)
+    s4 = commander_serial(tick.consts, state_p, carry_p, cmd_p,
+                          mpc_horizon=tick.mpc_horizon, mpc_dt=tick.mpc_dt)
     p4 = fcmd.commander_pre_plain(
         tick.consts, state_p, carry_p, cmd_p, mpc_horizon=tick.mpc_horizon,
         mpc_dt=tick.mpc_dt)
     torch.cuda.synchronize()
+    hold_commander_to_serial(name, k4, s4)
     e4 = hold_commander_to_plain(name, k4[:9], p4[:9])
     if not torch.equal(k4[9], p4[9]):
         fail(f"{name}: K4's MPC block differs from its plain version")
@@ -1465,7 +1572,8 @@ def mpc_tick_vs_plain(name, cfg, tick, state_p, carry_p, warm_p, cmd_p,
     torch.cuda.synchronize()
     hold_substep_to_serial(name, k5, s5)
     e5 = hold_substep_to_plain(name, k5, p5)
-    log(f"  {name}: K4 + MPC block equal to plain, K6 within tolerance "
+    log(f"  {name}: K4 + MPC block bitwise its serial body and equal to "
+        f"plain, K6 within tolerance "
         f"(max|dF| {e6:.2e}), state after the tick bitwise K5's serial body "
         f"and within tolerance of the plain version (max {e5:.2e})")
     return max(e4, e5), e6
@@ -1523,7 +1631,8 @@ def phase_mpc_tick(cfg):
               and counts["qct_substep"] == steps
               and counts["qct_fused_solve"] == 0
               and counts["qct_assemble"] == 0
-              and counts["qct_substep_serial"] == 0,
+              and counts["qct_substep_serial"] == 0
+              and counts["qct_commander_serial"] == 0,
               f"{what}: exactly 3 launches per tick (K4, K6, K5), no K1: "
               f"{counts}")
 
@@ -1634,7 +1743,8 @@ def phase_mpc_tick(cfg):
         f"{dec.trace.qp_converged.float().mean().item():.4f}")
     check(cdec["qct_mpc_riccati"] == 50 and cdec["qct_commander_pre"] == 200
           and cdec["qct_substep"] == 200 and cdec["qct_fused_solve"] == 0
-          and cdec["qct_substep_serial"] == 0,
+          and cdec["qct_substep_serial"] == 0
+          and cdec["qct_commander_serial"] == 0,
           "decimated: K6 launched steps / 4 times, K4 and K5 every tick")
     return dict(tick=tick, cold_tick=cold, model=model, res=res,
                 res_mid=res_mid, cmd=cmd, launches=launches,
@@ -1800,6 +1910,9 @@ def phase_mpc_times(cfg, mpc):
     cmd_p = cmd.t().contiguous()
     k4 = tick.pre(state_p, carry_p, cmd_p)
     ms4 = graph_ms(lambda: tick.pre(state_p, carry_p, cmd_p), 50)
+    ms4s = graph_ms(lambda: commander_serial(
+        tick.consts, state_p, carry_p, cmd_p, mpc_horizon=MPC_N,
+        mpc_dt=MPC_DT), 50)
     t0 = time.time()
     fcmd.commander_pre_plain(tick.consts, state_p, carry_p, cmd_p,
                              mpc_horizon=MPC_N, mpc_dt=MPC_DT)
@@ -1807,7 +1920,8 @@ def phase_mpc_times(cfg, mpc):
     plain4 = (time.time() - t0) * 1e3
     kb = 4 * B * (42 + 95 + 6 + 144 + 25 + 17 * MPC_N)
     b4, by4 = bound_ms(kb, B * (ops_commander(0.0) + 20 + 60 + 26 * MPC_N))
-    out["k4"] = dict(ms=ms4, plain_ms=plain4, bound_ms=b4, bound_by=by4)
+    out["k4"] = dict(ms=ms4, plain_ms=plain4, bound_ms=b4, bound_by=by4,
+                     serial_ms=ms4s)
 
     ms6 = event_ms(lambda: tick.solve(k4[9], res2.warm), 10)
     t0 = time.time()
@@ -1837,8 +1951,8 @@ def phase_mpc_times(cfg, mpc):
                                                tick.consts.dt, N_SUBSTEPS), 20)
     in_k = ms4 + ms6 + ms5
     ms_tick = out["summary"]["warm-8"]["ms_per_tick"]
-    log(f"  K4 + MPC block: {ms4:.4f} ms (plain {plain4:.0f} ms, bound "
-        f"{b4:.5f} ms, {by4})")
+    log(f"  K4 + MPC block: {ms4:.4f} ms (its serial body {ms4s:.4f} ms, "
+        f"plain {plain4:.0f} ms, bound {b4:.5f} ms, {by4})")
     log(f"  K6 warm-8: {ms6:.4f} ms (plain {plain6:.0f} ms, bound {b6:.5f} "
         f"ms, {by6}, {ops6} operations per lane); cold-15 {ms6c:.4f} ms "
         f"(bound {b6c:.5f} ms); N = 24 cold, 25 iterations {ms6n:.4f} ms "
@@ -2263,7 +2377,7 @@ def main():
     main_res = phase_main_path(cfg, gen)
 
     tick_cfg = mit_cheetah_physical_config()
-    err4 = phase_commander_vs_plain(tick_cfg)
+    err4, k4_occ = phase_commander_vs_plain(tick_cfg)
     err5, k5_stats = phase_substep_vs_plain(tick_cfg)
     tick_res = phase_tick(tick_cfg)
     tick_launches = tick_res["launches"]
@@ -2309,7 +2423,10 @@ def main():
         "max_abs_err": max(worst["qct_assemble"], k2["max_abs_err"]),
         "ms": k2["ms"], "plain_ms": k2["plain_ms"],
         "bound_ms": k2["bound_ms"], "bound_by": "bytes", "library_ms": None,
-        "shape": f"B={B_MAIN}",
+        "event_ms": k2["event_ms"], "ms_equilibrated": k2["ms_equilibrated"],
+        "event_ms_equilibrated": k2["event_ms_equilibrated"],
+        "shape": f"B={B_MAIN}; ms through a CUDA graph, event_ms of "
+                 f"back-to-back calls",
     }
     k4_entry = {
         "name": "qct_commander_pre", "route": "cuda",
@@ -2323,7 +2440,14 @@ def main():
         "max_abs_err": max(err4, err4m), "library_ms": None,
         "shape": f"B={B_TICK}, 1 launch per tick; with the MPC block "
                  f"(N={MPC_N}) on the MPC tick ({mpc_times['k4']['ms']:.4f} "
-                 f"ms there)", **tick_res["k4"],
+                 f"ms there); serial_ms: its serial body (one instance per "
+                 f"thread)", **tick_res["k4"],
+        "mpc_tick": {k: mpc_times["k4"][k] for k in (
+            "ms", "serial_ms", "bound_ms", "plain_ms")},
+        "geometry": {k: k4_occ[k] for k in (
+            "blocks", "threads", "robots_per_block", "lanes")},
+        "occupancy": {k: k4_occ[k] for k in (
+            "blocks_per_sm", "registers", "local_bytes", "serial")},
     }
     k5_entry = {
         "name": "qct_substep", "route": "cuda",

@@ -5,7 +5,8 @@
 
 #include "qct_common.cuh"
 
-// One instance per thread (K2, K4, and K5's serial reference entry). 64
+// One instance per thread (K2, and the serial reference entries of K4 and
+// K5). 64
 // threads a block keeps the per-thread local arrays within reach of L1, and
 // small batches drop to one warp a block so that they spread over more SMs.
 static inline int qct_block_size(int B) { return B >= 132 * 64 ? 64 : 32; }

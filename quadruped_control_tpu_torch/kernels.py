@@ -44,7 +44,8 @@ _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # Launches of each kernel since the last reset (plain integers).
 launch_counts = {"qct_fused_solve": 0, "qct_assemble": 0,
-                 "qct_commander_pre": 0, "qct_substep": 0,
+                 "qct_commander_pre": 0, "qct_commander_serial": 0,
+                 "qct_substep": 0,
                  "qct_substep_serial": 0, "qct_mpc_riccati": 0,
                  "qct_dense_barrier": 0, "qct_dense_polish": 0}
 
@@ -403,8 +404,15 @@ def load():
                 ci, ctypes.POINTER(FusedParams), vp]
             lib.qct_assemble.restype = ci
             lib.qct_commander_pre.argtypes = [vp] * 13 + [
-                ci, ctypes.POINTER(CommanderParams), vp]
+                ci, ctypes.POINTER(CommanderParams), ci, ci, vp]
             lib.qct_commander_pre.restype = ci
+            lib.qct_commander_serial.argtypes = [vp] * 13 + [
+                ci, ctypes.POINTER(CommanderParams), vp]
+            lib.qct_commander_serial.restype = ci
+            lib.qct_commander_serial_block.argtypes = [ci]
+            lib.qct_commander_serial_block.restype = ci
+            lib.qct_commander_layout.argtypes = [vp]
+            lib.qct_commander_layout.restype = ci
             lib.qct_substep.argtypes = [vp] * 6 + [
                 ci, ci, ctypes.c_float, ctypes.POINTER(SubstepParams), ci, ci,
                 ci, vp]
@@ -427,7 +435,8 @@ def load():
             lib.qct_dense_barrier_layout.restype = ci
             for fn in ("qct_mpc_fn", "qct_fused_barrier_fn",
                        "qct_fused_polish_fn", "qct_dense_barrier_fn",
-                       "qct_dense_polish_fn", "qct_substep_fn"):
+                       "qct_dense_polish_fn", "qct_substep_fn",
+                       "qct_commander_fn", "qct_commander_serial_fn"):
                 getattr(lib, fn).argtypes = []
                 getattr(lib, fn).restype = vp
             lib.qct_occupancy.argtypes = [vp, ci, ci, vp]
@@ -564,13 +573,9 @@ def assemble(rp, bp, stp, mup, fminp, fmaxp, *, s_diag, w_diag, swing_relax,
 _CMD_OUT_ROWS = (12, 6, 4, 1, 1, 1, 12, 95, 12)
 
 
-def commander_pre(state, carry, cmd, params):
-    """Launch the commander-pre kernel (K4) once on ``(k, B)`` CUDA tensors:
-    ``state`` (>= 42, B), ``carry`` (95, B), ``cmd`` (6, B); ``params`` is a
-    :class:`CommanderParams` (see :func:`commander_params`). Returns (r, b,
-    st, mu, fz_min, fz_max, tau_swing, carry, q_ref), contiguous row blocks
-    of ONE allocation, and with ``params.mpc_horizon = N > 0`` a tenth block,
-    the MPC precursor block (25 + 17 N, B)."""
+def _commander_args(state, carry, cmd, params):
+    """Check K4's tensors; returns (B, device, the output slab's row
+    blocks)."""
     device = state.device
     B = state.shape[1]
     _require_cuda("state", state, state.shape[0], B, device)
@@ -578,20 +583,51 @@ def commander_pre(state, carry, cmd, params):
         raise ValueError(f"state: {state.shape[0]} rows, the kernel reads 42")
     _require_cuda("carry", carry, 95, B, device)
     _require_cuda("cmd", cmd, 6, B, device)
-    lib = load()
     rows = _CMD_OUT_ROWS
     if params.mpc_horizon > 0:
         rows = rows + (25 + 17 * params.mpc_horizon,)
     slab = torch.empty((sum(rows), B), dtype=torch.float32, device=device)
-    outs = torch.split(slab, rows)
+    return B, device, torch.split(slab, rows)
+
+
+def commander_pre(state, carry, cmd, params):
+    """Launch the commander-pre kernel (K4) once on ``(k, B)`` CUDA tensors:
+    ``state`` (>= 42, B), ``carry`` (95, B), ``cmd`` (6, B); ``params`` is a
+    :class:`CommanderParams` (see :func:`commander_params`). Returns (r, b,
+    st, mu, fz_min, fz_max, tau_swing, carry, q_ref), contiguous row blocks
+    of ONE allocation, and with ``params.mpc_horizon = N > 0`` a tenth block,
+    the MPC precursor block (25 + 17 N, B). The launch takes
+    :func:`commander_geometry` (a group of lanes per instance)."""
+    B, device, outs = _commander_args(state, carry, cmd, params)
+    lib = load()
+    geo = commander_geometry(B)
     ptrs = [o.data_ptr() for o in outs] + [None] * (10 - len(outs))
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.qct_commander_pre(
             state.data_ptr(), carry.data_ptr(), cmd.data_ptr(), *ptrs, B,
-            ctypes.byref(params), stream)
+            ctypes.byref(params), geo.blocks, geo.threads, stream)
     _check(lib, rc, "qct_commander_pre")
     launch_counts["qct_commander_pre"] += 1
+    return outs
+
+
+def commander_serial(state, carry, cmd, params):
+    """Launch K4's serial body (one instance per thread, the kernel's first
+    form) once, with :func:`commander_pre`'s arguments and outputs. It is
+    the reference that chip_smoke.py holds K4 to bit for bit; no path of the
+    port calls it. Counted under ``launch_counts["qct_commander_serial"]``.
+    """
+    B, device, outs = _commander_args(state, carry, cmd, params)
+    lib = load()
+    ptrs = [o.data_ptr() for o in outs] + [None] * (10 - len(outs))
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.qct_commander_serial(
+            state.data_ptr(), carry.data_ptr(), cmd.data_ptr(), *ptrs, B,
+            ctypes.byref(params), stream)
+    _check(lib, rc, "qct_commander_serial")
+    launch_counts["qct_commander_serial"] += 1
     return outs
 
 
@@ -820,6 +856,54 @@ def substep_occupancy(B):
     return dict(layout._asdict(), **geo._asdict(),
                 **_occupancy("qct_substep_fn", geo.threads,
                              geo.shared_bytes))
+
+
+class CommanderLayout(NamedTuple):
+    """What a build of the commander-pre kernel (K4) reports
+    (csrc/qct_commander.cuh ``qc_layout``): lanes per instance (neighbouring
+    threads), threads a block."""
+
+    lanes: int
+    threads: int
+
+
+@functools.cache
+def commander_layout() -> CommanderLayout:
+    """The built commander-pre kernel's (K4) :class:`CommanderLayout`."""
+    lib = load()
+    out = (ctypes.c_int * 2)()
+    _check(lib, lib.qct_commander_layout(out), "qct_commander_layout")
+    return CommanderLayout(*out)
+
+
+def commander_geometry(B: int, layout: CommanderLayout | None = None
+                       ) -> MpcGeometry:
+    """K4's launch for B instances on ``layout`` (default: the build's,
+    :func:`commander_layout`): blocks of ``layout.threads`` threads,
+    ``layout.lanes`` an instance, no shared memory (instance slots past B
+    write nothing)."""
+    layout = commander_layout() if layout is None else layout
+    per_block = layout.threads // layout.lanes
+    if per_block < 1 or layout.threads % 32 != 0:
+        raise ValueError(f"a block of {layout.threads} threads at "
+                         f"{layout.lanes} lanes an instance is not whole "
+                         f"warps of whole instances")
+    return MpcGeometry(-(-B // per_block), layout.threads, per_block, 0)
+
+
+def commander_occupancy(B):
+    """What the card makes of K4's launch for B instances: dict of the
+    build's layout, the geometry, the resident blocks per SM and the
+    registers and local (stack) bytes per thread; under ``serial`` the same
+    for the serial body's launch (one instance per thread)."""
+    layout = commander_layout()
+    geo = commander_geometry(B, layout)
+    threads = load().qct_commander_serial_block(B)
+    serial = dict(threads=threads, blocks=-(-B // threads),
+                  **_occupancy("qct_commander_serial_fn", threads, 0))
+    return dict(layout._asdict(), **geo._asdict(),
+                **_occupancy("qct_commander_fn", geo.threads, 0),
+                serial=serial)
 
 
 def _dense_problem(Qp, cp, Gp, hp):

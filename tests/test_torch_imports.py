@@ -75,7 +75,8 @@ def test_every_kernel_source_is_built_and_counted():
         p.name for p in csrc.glob("*.cu"))
     assert set(kernels.launch_counts) == {
         "qct_fused_solve", "qct_assemble", "qct_commander_pre",
-        "qct_substep", "qct_substep_serial", "qct_mpc_riccati",
+        "qct_commander_serial", "qct_substep", "qct_substep_serial",
+        "qct_mpc_riccati",
         "qct_dense_barrier", "qct_dense_polish"}
     kernels.reset_launch_counts()
     assert not any(kernels.launch_counts.values())

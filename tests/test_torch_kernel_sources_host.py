@@ -9,8 +9,9 @@ csrc/qct_mpc.cuh, csrc/qct_dense_ipm.cuh) are plain C++ behind a macro: tests/to
 launchers fill are handed to it. Float32 on both sides. This is a rehearsal
 of the kernels' arithmetic, not of the kernels: host ``sinf``/``atan2f`` and
 torch's CPU ones differ in the last bits, so the tolerances are those of
-float32 round-off carried through the chain (on the card K4 is bitwise equal
-to its plain version, chip_smoke.py). K6 is held as on the card: by the
+float32 round-off carried through the chain (on the card too K4 is held to
+its plain version within tolerances, and bitwise to its serial body,
+chip_smoke.py). K6 is held as on the card: by the
 objective of its horizon forces and by its convergence statistics (a near-tie
 of the merit can flip the best-iterate pick on a lane). K3a and K3b follow
 their plain versions statement for statement: bitwise, once the plain

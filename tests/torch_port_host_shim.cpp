@@ -7,7 +7,7 @@
 // without a CUDA compiler (tests/test_torch_kernel_sources_host.py,
 // tests/test_torch_mpc_lanes.py, tests/test_torch_fused_lanes.py,
 // tests/test_torch_dense_lanes.py, tests/test_torch_dense_barrier_lanes.py,
-// tests/test_torch_substep_lanes.py).
+// tests/test_torch_substep_lanes.py, tests/test_torch_commander_lanes.py).
 //
 // Built with -DQCT_LANE_PROGRAM, the five lane-group kernels, K6 (MPC), K1
 // (fused GRF-QP), K3a (dense barrier), K3b (dense polish) and K5
@@ -48,6 +48,20 @@ static bool lane_all(bool pred, int site);
 #define QF_HOST_LANES(lane) for (int lane = QF_G - 1; lane >= 0; --lane)
 #define QS_HOST_LANES(lane) for (int lane = QS_G - 1; lane >= 0; --lane)
 #endif
+// K4's lane body stores through QC_STORE: the shim counts the stores into
+// the output slab host_commander_lanes is given (each word must have one
+// writer); a store outside the slab counts in the slab's last word + 1.
+static float* qc_slab_;
+static long qc_slab_words_;
+static int* qc_writes_;
+static inline void qc_host_store(float* p, float v) {
+  *p = v;
+  if (qc_writes_) {
+    const long k = p - qc_slab_;
+    ++qc_writes_[k >= 0 && k < qc_slab_words_ ? k : qc_slab_words_];
+  }
+}
+#define QC_STORE(p, v) qc_host_store((p), (v))
 #include "qct_commander.cuh"
 #include "qct_dense_ipm.cuh"
 #include "qct_fused.cuh"
@@ -62,8 +76,41 @@ extern "C" void host_commander_pre(const float* state, const float* carry,
                                    int B, const QctCmdParams* params) {
   QctCmdIO io = {state, carry,     cmd,   r,  b,  st,  mu,
                  fzmin, fzmax, tau_swing, carry_out, q_ref, mpc};
-  for (int i = 0; i < B; ++i) commander_instance(io, B, i, *params);
+  for (int i = 0; i < B; ++i) commander_instance_serial(io, B, i, *params);
 }
+
+// K4's lane body over the threads of its launch for B instances (blocks of
+// QC_THREADS, each thread's slot and lane from qc_slot, slots past B skip
+// as on the card), in thread order, or last thread first with
+// -DQCT_REVERSE_LANES. writes (slab_words + 1 ints, or null) counts the
+// stores into the slab that holds every output.
+extern "C" void host_commander_lanes(
+    const float* state, const float* carry, const float* cmd, float* r,
+    float* b, float* st, float* mu, float* fzmin, float* fzmax,
+    float* tau_swing, float* carry_out, float* q_ref, float* mpc, int B,
+    const QctCmdParams* params, float* slab, long slab_words, int* writes) {
+  QctCmdIO io = {state, carry,     cmd,   r,  b,  st,  mu,
+                 fzmin, fzmax, tau_swing, carry_out, q_ref, mpc};
+  qc_slab_ = slab;
+  qc_slab_words_ = slab_words;
+  qc_writes_ = writes;
+  const int per_block = QC_THREADS / QC_G;
+  const long n = (long)((B + per_block - 1) / per_block) * QC_THREADS;
+  for (long k = 0; k < n; ++k) {
+#ifdef QCT_REVERSE_LANES
+    const long th = n - 1 - k;
+#else
+    const long th = k;
+#endif
+    int slot, lane;
+    qc_slot((int)(th / QC_THREADS), (int)(th % QC_THREADS), slot, lane);
+    if (slot < B) commander_lanes(io, B, slot, *params, lane);
+  }
+  qc_writes_ = nullptr;
+}
+
+// K4's layout of this build (qc_layout): lanes, threads a block.
+extern "C" void host_commander_layout(int* out) { qc_layout(out); }
 
 // K5's serial body (one robot per thread), the reference of its lane body.
 extern "C" void host_substep_serial(const float* state, const float* a,
