@@ -58,6 +58,25 @@ kernel per solve, and solve_balance_qp_fused with the bench schedule and
 prox_backend="xla" (3 K1 launches + 6 x (K3a + K3b) per solve), with times
 beside the bounds (K3a and K3b also at the xla prox slice's 1024 QPs).
 
+Then the fifth main path, the SRB closed loop (control/rollout.py: the
+plain commander x the SRB plant, one kernel a tick) in the configurations of
+the JAX package's scripts/rollout_bench.py: (f) the balance QP in K1 (barrier
+only, 12 iterations) at B = 4096, stand_up_rollout (600 ticks) then a
+0.2 m/s trot through rollout (600 ticks), exactly one K1 launch a tick and
+no other launch, the behaviour limits of tests/test_rollout.py, K1 bitwise
+its plain version on the loop's inputs, and teacher-forced ticks from three
+recorded states on the card against the plain path on the CPU; (g) the
+N = 8 MPC in K6 (cold, 25 iterations) at B = 1024, every tick (450 stand-up
++ 450 trot ticks, exactly one K6 launch a tick) and every 10th tick
+(rollout_mpc_decimated, one launch a group), the limits of
+tests/test_mpc_commander.py, K6 against its plain version on the loop's
+inputs, the same teacher-forced ticks; (h) gradients on the card:
+solve_qp_implicit's against the CPU's, the decimated MPC walking loop's
+(float64, structured MPC) against its central difference, and a gradient
+through K1 raising; and ms per tick of the three rollouts (marginal, the
+lengths of rollout_bench.py) with the host's enqueue time and the kernel's
+share of the tick.
+
 Any failed phase ends the run with a non-zero exit code; nothing is caught and
 carried on. Without a CUDA device it exits with code 2 and prints no result.
 
@@ -86,8 +105,16 @@ from quadruped_control_tpu_torch.config import (  # noqa: E402
     mit_cheetah_whole_body_config,
 )
 from quadruped_control_tpu_torch.control import fused_commander as fcmd  # noqa: E402
+from quadruped_control_tpu_torch.control import rollout as srb  # noqa: E402
 from quadruped_control_tpu_torch.control.commander import (  # noqa: E402
+    commander_precursors,
+    commander_step,
     init_commander_carry,
+    mpc_precursors,
+)
+from quadruped_control_tpu_torch.control.plant import (  # noqa: E402
+    init_plant_state,
+    plant_step,
 )
 from quadruped_control_tpu_torch.mpc import fused_riccati as fr  # noqa: E402
 from quadruped_control_tpu_torch.mpc import structured as mst  # noqa: E402
@@ -102,6 +129,9 @@ from quadruped_control_tpu_torch.sim import fused_substep as fsub  # noqa: E402
 from quadruped_control_tpu_torch.sim import fused_tick as ftick  # noqa: E402
 from quadruped_control_tpu_torch.solver import fused as pf  # noqa: E402
 from quadruped_control_tpu_torch.solver import fused_ipm as fi  # noqa: E402
+from quadruped_control_tpu_torch.solver.diff import (  # noqa: E402
+    solve_qp_implicit,
+)
 from quadruped_control_tpu_torch.solver.ipm import equilibrate  # noqa: E402
 from quadruped_control_tpu_torch.solver.reference import (  # noqa: E402
     solve_qp_batch_oracle,
@@ -143,6 +173,16 @@ MAIN_SCHEDULE = dict(
 # The dense QP solve of the split pipeline (scripts/fused_bench.py:48-54 of
 # the JAX package): grf_scenarios -> assemble_qp_batch -> the dense solve.
 DENSE_ITERS = 20
+# The SRB closed loop (control/rollout.py: commander x SRB plant) in the
+# configurations of scripts/rollout_bench.py:23-77 of the JAX package:
+# mit_cheetah_physical_config, a 0.2 m/s trot, the balance QP in K1
+# (barrier only, 12 iterations) at B = 4096; the N = 8 MPC in K6 (cold, 25
+# iterations) at B = 1024, every tick and every 10th tick.
+B_SRB, B_SRB_MPC = 4096, 1024
+SRB_QP = dict(qp_backend="fused", qp_iterations=12, qp_polish=False)
+SRB_MPC = dict(controller="mpc", mpc_horizon=8, mpc_dt=0.05,
+               mpc_iterations=25, mpc_backend="riccati-pallas")
+SRB_EVERY = 10
 
 
 def log(msg):
@@ -2363,6 +2403,435 @@ def phase_prox_xla(cfg, gen, main_res):
                 slice=Bt)
 
 
+# ---------------------------------------------------------------------------
+# The SRB closed loop: commander x SRB plant (control/rollout.py), the
+# balance QP in K1 or the MPC in K6
+# ---------------------------------------------------------------------------
+
+def to_device(obj, device):
+    """A NamedTuple of tensors (nested), a tensor or None, on ``device``."""
+    if obj is None:
+        return None
+    if torch.is_tensor(obj):
+        return obj.to(device)
+    return type(obj)(*(to_device(v, device) for v in obj))
+
+
+def srb_cmd(B, vx=0.2):
+    cmd = torch.zeros(B, 6, device=DEV)
+    cmd[:, 0] = vx
+    return cmd
+
+
+def srb_stand_checks(name, trace, z_tol, conv_min):
+    """The stand-up limits of tests/test_rollout.py:30-45 (z_tol 0.01,
+    converged > 0.99) and tests/test_mpc_commander.py:31-44 (0.01, 0.95;
+    0.012 for the decimated stand-up, :72)."""
+    z_err = (trace.x[-1, :, 2] - 0.26).abs().max().item()
+    tmax = trace.torque_max.max().item()
+    conv = trace.qp_converged.float().mean().item()
+    check(bool(torch.isfinite(trace.x).all()), f"{name}: finite")
+    check(z_err < z_tol, f"{name}: every robot at 0.26 m within {z_tol} "
+          f"(worst {z_err:.5f})")
+    check(bool(trace.standing[-1].all()), f"{name}: every robot standing")
+    check(tmax <= 20.0 + 1e-9, f"{name}: torques within the 20 N m clamp "
+          f"(max {tmax:.4f})")
+    check(conv > conv_min, f"{name}: converged fraction {conv:.4f} > "
+          f"{conv_min}")
+    return dict(z_err=z_err, torque_max=tmax, converged=conv)
+
+
+def srb_walk_checks(name, trace, seconds, stance_check=True):
+    """The trot limits of tests/test_rollout.py:58-70 and
+    tests/test_mpc_commander.py:47-58: mean forward speed > 0.1 m/s for
+    every robot, height within 0.04 m of 0.26 at every recorded tick,
+    finite, a trot's stance fraction."""
+    x = trace.x
+    v = (x[-1, :, 0] - x[0, :, 0]) / seconds
+    hdev = (x[..., 2] - 0.26).abs().max().item()
+    stance = trace.in_stance.float().mean().item()
+    check(bool(torch.isfinite(x).all()), f"{name}: finite")
+    check(v.min().item() > 0.1, f"{name}: every robot trots forward, mean "
+          f"speed {v.min().item():.4f} .. {v.max().item():.4f} m/s > 0.1")
+    check(hdev < 0.04, f"{name}: height within 0.04 m (worst {hdev:.5f})")
+    if stance_check:
+        check(0.7 < stance < 0.95, f"{name}: stance fraction {stance:.4f} "
+              f"in (0.7, 0.95)")
+    return dict(v_min=v.min().item(), v_max=v.max().item(),
+                height_dev=hdev, stance=stance)
+
+
+# Teacher-forced ticks, the card against the plain path on the CPU (the
+# same tick from the same recorded state): absolute tolerance per output,
+# masks exactly. The float32 arithmetic of the commander and the plant
+# differs between the two devices in the last bits (sin / cos / atan2,
+# reductions), and K6's plain version orders its products otherwise. The
+# floor is scripts/torch_srb_tick_sensitivity.py (CPU, plain versions): 1-ulp
+# noise on the state moves the forces by up to 0.58 N (balance) and 1.19 N
+# (MPC) along the QPs' flat internal-force directions (1e-5 curvature:
+# squeezing between stance feet, which cancels in the net wrench), the
+# torques by 0.10 / 0.31 N m, but the next state, which integrates only the
+# net wrench, by x 6e-8 / 6e-7 m, xdot 4.5e-8 / 1.8e-4 m/s, w 4.7e-6 /
+# 4.0e-6 rad/s, R 3.6e-7 / 3.6e-7, q 8.3e-7 / 3.8e-6 rad, qdot 3.9e-4 /
+# 1.1e-3 rad/s (= dq / dt), the feet not at all. The tolerances are 4-15x
+# the forces' and torques' floor and 25-130x the state's: the forces are
+# held loosely, their wrench tightly through the state.
+SRB_TF_TOLS = {
+    "balance": dict(forces=5.0, torques=1.5, x=5e-6, xdot=5e-6, w=5e-4,
+                    R=2e-5, feet=1e-5, q=5e-5, qdot=2e-2),
+    "mpc": dict(forces=5.0, torques=1.5, x=2e-5, xdot=5e-3, w=5e-4,
+                R=2e-5, feet=1e-5, q=1e-4, qdot=5e-2),
+}
+
+
+def srb_teacher_forced(name, cfg, plant, carry, cmd, tols, **kw):
+    """One tick (commander_step + plant_step) from a recorded state on the
+    card (through the kernel) and on the CPU (its plain version)."""
+    dt = 1.0 / cfg.frequency
+
+    def tick(p, c, u):
+        out, _ = commander_step(p.com, p.joints, c, u, dt, cfg, **kw)
+        return out, plant_step(p, out.forces_world, out.gait.in_stance,
+                               out.foot_refs_world, dt, cfg)
+
+    ok_, pk = tick(plant, carry, cmd)
+    op_, pp = tick(to_device(plant, "cpu"), to_device(carry, "cpu"),
+                   cmd.cpu())
+    for what, a, b in (("in_stance", ok_.gait.in_stance, op_.gait.in_stance),
+                       ("converged", ok_.qp_converged, op_.qp_converged)):
+        check(torch.equal(a.cpu(), b), f"{name}: {what} exactly the plain "
+              f"path's ({a.float().mean().item():.4f} set)")
+    pairs = {"forces": (ok_.forces_world, op_.forces_world),
+             "torques": (ok_.torques, op_.torques),
+             "x": (pk.com.x, pp.com.x), "xdot": (pk.com.xdot, pp.com.xdot),
+             "w": (pk.com.w, pp.com.w), "R": (pk.com.R, pp.com.R),
+             "feet": (pk.feet_world, pp.feet_world),
+             "q": (pk.joints.q, pp.joints.q),
+             "qdot": (pk.joints.qdot, pp.joints.qdot)}
+    errs = {k: (a.cpu() - b).abs().max().item() for k, (a, b) in
+            pairs.items()}
+    log(f"  {name}: max |card - plain| " + ", ".join(
+        f"{k} {v:.2e}" for k, v in errs.items()))
+    bad = [k for k, v in errs.items() if not v <= tols[k]]
+    if bad:
+        fail(f"{name}: {bad} beyond {[tols[k] for k in bad]}")
+    return errs
+
+
+def srb_k1_inputs(cfg, plant, carry, cmd):
+    """K1's packed inputs for one SRB tick from a recorded state: what
+    solve_balance_qp_fused hands the kernel."""
+    dt = 1.0 / cfg.frequency
+    com, bal = plant.com, cfg.balance
+    pre = commander_precursors(com, plant.joints, carry, cmd, dt, cfg)
+    r_masked, b = pf.balance_precursors(
+        com.R, pre.R_d, com.x, com.xdot, com.w, pre.x_d, pre.xdot_d,
+        pre.w_d, pre.feet_body, pre.eff_stance, bal)
+    return pf._prep_inputs(r_masked, b, pre.eff_stance, bal.mu, bal.fz_min,
+                           bal.fz_max)
+
+
+def srb_k6_block(cfg, plant, carry, cmd):
+    """K6's packed (25 + 17N, B) block for one SRB MPC tick from a recorded
+    state: what solve_mpc_fused hands the kernel."""
+    dt = 1.0 / cfg.frequency
+    com = plant.com
+    N, mdt = SRB_MPC["mpc_horizon"], SRB_MPC["mpc_dt"]
+    pre = commander_precursors(com, plant.joints, carry, cmd, dt, cfg)
+    xi0, xi_ref, _, sched = mpc_precursors(
+        com, pre.gait_time, pre.walking, pre.eff_stance, cmd, cfg, N, mdt)
+    B = xi0.shape[0]
+    r = pre.p_start - com.x[:, None, :]
+    return torch.cat([xi0, r.reshape(B, 12), sched.float().reshape(B, -1),
+                      xi_ref.reshape(B, -1)], -1).t().contiguous()
+
+
+def phase_srb_balance(cfg):
+    log(f"== phase 16 (f): the SRB balance rollout, B = {B_SRB}, K1 barrier "
+        f"only ({SRB_QP['qp_iterations']} iterations): stand_up_rollout "
+        f"600 ticks, then a 0.2 m/s trot through rollout, 2 x 300 ticks")
+    cmd = srb_cmd(B_SRB)
+    kernels.reset_launch_counts()
+    t0 = time.time()
+    stand = srb.stand_up_rollout(cfg, seconds=2.0, batch_shape=(B_SRB,),
+                                 **SRB_QP)
+    mid = srb.rollout(stand.plant, stand.carry, cmd, 300, cfg, **SRB_QP)
+    trot = srb.rollout(mid.plant, mid.carry, cmd, 300, cfg, **SRB_QP)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = dict(kernels.launch_counts)
+    ticks = 1200
+    log(f"  1200 ticks in {wall:.1f} s; launches {launches}")
+    check(launches["qct_fused_solve"] == ticks,
+          f"K1 launched once a tick ({launches['qct_fused_solve']} for "
+          f"{ticks} ticks)")
+    check(all(v == 0 for k, v in launches.items()
+              if k != "qct_fused_solve"), "no launch of K2-K6")
+    out = dict(launches=launches, wall_s=wall)
+    out["stand"] = srb_stand_checks("stand-up", stand.trace, 0.01, 0.99)
+    walk = srb.RolloutTrace(*(torch.cat([a, b]) for a, b in
+                              zip(mid.trace, trot.trace)))
+    out["trot"] = srb_walk_checks("trot", walk, 2.0)
+
+    # K1 at the loop's shape on the trot's last state, against its plain
+    # version (bitwise), its launch and time.
+    bal = cfg.balance
+    base = dict(s_diag=tuple(bal.s_diag), w_diag=float(bal.w_diag))
+    inp = srb_k1_inputs(cfg, trot.plant, trot.carry, cmd)
+    dense = kernels.assemble(*inp, swing_relax=SWING_ROW_RELAX,
+                             equilibrated=False, **base)[:2]
+    mode = dict(iterations=SRB_QP["qp_iterations"], polish=False)
+    kern, max_abs = compare_fused(f"SRB barrier-{mode['iterations']}", inp,
+                                  dense, (), **mode)
+    fs_ = pf.FusedSchedule(**base, **mode)
+    work = torch.zeros((2, B_SRB), dtype=torch.int32, device=DEV)
+    kernels.fused_solve(*inp, (), fs_, work=work)
+    ms1 = graph_ms(lambda: pf.solve_grf_qp_fused_packed(*inp, **base,
+                                                        **mode), 20)
+    t0 = time.time()
+    pf._fused_plain(*inp, None, fs_)
+    torch.cuda.synchronize()
+    plain1 = (time.time() - t0) * 1e3
+    ops1 = ops_fused(dict(prox_steps=0, polish_refine=0, ff_refine=False),
+                     int(work[0].sum().item()), 0, 0, B_SRB)
+    b1, by1 = bound_ms(4 * B_SRB * (25 + 66), ops1)
+    log(f"  K1 barrier-{mode['iterations']} at B = {B_SRB}: {ms1:.4f} ms "
+        f"through a CUDA graph (plain {plain1:.0f} ms, bound {b1:.5f} ms, "
+        f"{by1})")
+    out["k1"] = dict(mode=f"SRB rollout barrier-{mode['iterations']}",
+                     batch=B_SRB, ms=ms1, plain_ms=plain1, bound_ms=b1,
+                     bound_by=by1, operations=ops1, max_abs_err=max_abs,
+                     geometry=fused_geometry(B_SRB, False))
+
+    # Teacher-forced ticks from three recorded states.
+    errs = {}
+    for nm, res in (("stood up (tick 600)", stand), ("trot (tick 900)", mid),
+                    ("trot (tick 1200)", trot)):
+        e = srb_teacher_forced(f"teacher-forced tick from {nm}", cfg,
+                               res.plant, res.carry, cmd,
+                               SRB_TF_TOLS["balance"], **SRB_QP)
+        errs = {k: max(errs.get(k, 0.0), v) for k, v in e.items()}
+    out["teacher_forced_max_err"] = errs
+    return out
+
+
+def phase_srb_mpc(cfg):
+    N, every = SRB_MPC["mpc_horizon"], SRB_EVERY
+    log(f"== phase 17 (g): the SRB MPC rollouts, B = {B_SRB_MPC}, K6 (N = "
+        f"{N}, mpc_dt = {SRB_MPC['mpc_dt']}, cold, "
+        f"{SRB_MPC['mpc_iterations']} iterations): every tick (450 stand-up "
+        f"+ 450 trot), and every {every}th tick (rollout_mpc_decimated, "
+        f"zoh, the same)")
+    cmd = srb_cmd(B_SRB_MPC)
+    dec_kw = dict(mpc_every=every, hold_mode="zoh",
+                  **{k: v for k, v in SRB_MPC.items() if k != "controller"})
+    out = {}
+
+    kernels.reset_launch_counts()
+    t0 = time.time()
+    stand = srb.stand_up_rollout(cfg, seconds=1.5, batch_shape=(B_SRB_MPC,),
+                                 **SRB_MPC)
+    walk = srb.rollout(stand.plant, stand.carry, cmd, 450, cfg, **SRB_MPC)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = dict(kernels.launch_counts)
+    log(f"  every tick: 900 ticks in {wall:.1f} s; launches {launches}")
+    check(launches["qct_mpc_riccati"] == 900,
+          f"K6 launched once a tick ({launches['qct_mpc_riccati']} for 900 "
+          f"ticks)")
+    check(all(v == 0 for k, v in launches.items()
+              if k != "qct_mpc_riccati"), "no launch of K1-K5")
+    out["per_tick"] = dict(
+        launches=launches, wall_s=wall,
+        stand=srb_stand_checks("MPC stand-up", stand.trace, 0.01, 0.95),
+        trot=srb_walk_checks("MPC trot", walk.trace, 1.5))
+
+    kernels.reset_launch_counts()
+    t0 = time.time()
+    plant = init_plant_state(cfg, (B_SRB_MPC,))
+    carry = init_commander_carry((B_SRB_MPC,))
+    dstand = srb.rollout_mpc_decimated(plant, carry, 0.0 * cmd, 450, cfg,
+                                       **dec_kw)
+    dwalk = srb.rollout_mpc_decimated(dstand.plant, dstand.carry, cmd, 450,
+                                      cfg, **dec_kw)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = dict(kernels.launch_counts)
+    log(f"  every {every}th tick: 900 ticks in {wall:.1f} s; launches "
+        f"{launches}")
+    check(launches["qct_mpc_riccati"] == 900 // every,
+          f"K6 launched once a group ({launches['qct_mpc_riccati']} for "
+          f"900 ticks / {every})")
+    check(all(v == 0 for k, v in launches.items()
+              if k != "qct_mpc_riccati"), "no launch of K1-K5")
+    z_err = (dstand.trace.x[-1, :, 2] - 0.26).abs().max().item()
+    check(bool(torch.isfinite(dstand.trace.x).all()) and z_err < 0.012,
+          f"decimated stand-up: finite, every robot at 0.26 m within 0.012 "
+          f"(worst {z_err:.5f}; tests/test_mpc_commander.py:72)")
+    out["decimated"] = dict(
+        launches=launches, wall_s=wall, stand_z_err=z_err,
+        trot=srb_walk_checks("decimated trot", dwalk.trace, 1.5,
+                             stance_check=False))
+
+    # K6 at the loop's shape on the per-tick trot's last state, against its
+    # plain version, and its time.
+    st = _mpc_settings(cfg, N, SRB_MPC["mpc_dt"], SRB_MPC["mpc_iterations"])
+    block = srb_k6_block(cfg, walk.plant, walk.carry, cmd)
+    kern = _mpc_solve(block, None, st)
+    plain = fr.packed_plain(block, None, st) + (None,)
+    torch.cuda.synchronize()
+    max_abs, stats = hold_mpc_to_plain(
+        f"SRB N={N} cold-{st.iterations} B={B_SRB_MPC}", cfg, block, kern,
+        plain, N, st.dt)
+    ms6 = event_ms(lambda: _mpc_solve(block, None, st), 10)
+    t0 = time.time()
+    fr.packed_plain(block, None, st)
+    torch.cuda.synchronize()
+    plain6 = (time.time() - t0) * 1e3
+    b6, by6 = bound_ms(B_SRB_MPC * mpc_bytes(N, False),
+                       B_SRB_MPC * ops_mpc(N, st.iterations, False))
+    log(f"  K6 N = {N} cold-{st.iterations} at B = {B_SRB_MPC}: {ms6:.4f} ms "
+        f"(plain {plain6:.0f} ms, bound {b6:.5f} ms, {by6})")
+    out["k6"] = dict(ms=ms6, plain_ms=plain6, bound_ms=b6, bound_by=by6,
+                     max_abs_err=max_abs, stats=stats)
+
+    errs = {}
+    for nm, res in (("MPC stood up (tick 450)", stand),
+                    ("MPC trot (tick 900)", walk),
+                    ("decimated trot (tick 900)", dwalk)):
+        e = srb_teacher_forced(f"teacher-forced tick from {nm}", cfg,
+                               res.plant, res.carry, cmd, SRB_TF_TOLS["mpc"],
+                               qp_iterations=12, qp_polish=False, **SRB_MPC)
+        errs = {k: max(errs.get(k, 0.0), v) for k, v in e.items()}
+    out["teacher_forced_max_err"] = errs
+    return out
+
+
+def phase_srb_gradients(cfg):
+    log("== phase 18 (h): gradients on the card (float64)")
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(SEED + 18)
+    s = grf_scenarios(gen, 64, mit_cheetah_config(), device=DEV)
+    qp = assemble_qp_batch(s, mit_cheetah_config())
+    w = torch.randn(12, generator=gen, device=DEV, dtype=torch.float64)
+    def grads(dev):
+        leaves = [a.double().to(dev).requires_grad_(True)
+                  for a in (qp.Q, qp.c, qp.G, qp.h)]
+        x = solve_qp_implicit(*leaves, 40, True)
+        torch.sum(x * w.to(dev)).backward()
+        return [a.grad.cpu() for a in leaves] + [x.detach().cpu()]
+
+    errs = {nm: ((a - b).abs().max() / (1.0 + b.abs().max())).item()
+            for nm, a, b in zip(("Q", "c", "G", "h", "x"), grads(DEV),
+                                grads("cpu"))}
+    log("  solve_qp_implicit, 64 QPs, d(x . w)/d(Q, c, G, h): max |cuda - "
+        "cpu| / (1 + max|cpu|): " + ", ".join(f"{k} {v:.2e}" for k, v in
+                                              errs.items()))
+    check(all(v < 1e-8 for v in errs.values()),
+          "implicit gradients on the card equal the CPU's within 1e-8")
+
+    # tests/test_mpc_commander.py:91: d loss / d vx through 30 ticks of the
+    # decimated MPC walking loop (structured backend, float64).
+    t0 = time.time()
+    stand = srb.stand_up_rollout(cfg, seconds=2.0, dtype=torch.float64)
+    check(bool(stand.carry.standing), "float64 stand-up (600 ticks, B = 1) "
+          "standing")
+    kw = dict(mpc_every=5, mpc_horizon=4, mpc_dt=0.04, mpc_iterations=12,
+              mpc_backend="structured", record=False)
+
+    def loss(vx):
+        cmd = torch.cat([vx.reshape(1),
+                         torch.zeros(5, dtype=torch.float64, device=DEV)])
+        res = srb.rollout_mpc_decimated(stand.plant, stand.carry, cmd, 30,
+                                        cfg, **kw)
+        return (res.plant.com.xdot[0] - 0.2) ** 2
+
+    vx = torch.tensor(0.1, dtype=torch.float64, device=DEV,
+                      requires_grad=True)
+    loss(vx).backward()
+    g = vx.grad.item()
+    with torch.no_grad():
+        e = 1e-6
+        fd = (loss(torch.tensor(0.1 + e, dtype=torch.float64, device=DEV))
+              - loss(torch.tensor(0.1 - e, dtype=torch.float64, device=DEV))
+              ).item() / (2 * e)
+    rel = abs(g - fd) / (1.0 + abs(fd))
+    log(f"  walking-loop gradient {g:.10f}, central difference {fd:.10f}, "
+        f"rel {rel:.2e} ({time.time() - t0:.1f} s with the stand-up)")
+    check(np.isfinite(g) and rel < 1e-7, "the MPC walking-loop gradient "
+          "meets its central difference within 1e-7")
+    # A gradient asked for through a kernel backend raises.
+    plant = init_plant_state(cfg, (4,))
+    com = plant.com._replace(x=plant.com.x.clone().requires_grad_(True))
+    try:
+        commander_step(com, plant.joints, init_commander_carry((4,)),
+                       srb_cmd(4), 1.0 / cfg.frequency, cfg, **SRB_QP)
+    except RuntimeError as err:
+        check("no backward" in str(err),
+              "a gradient through K1 raises on the card")
+    else:
+        fail("a gradient through K1 did not raise")
+    return dict(implicit_rel_err=errs, loop_grad=g, loop_fd=fd, loop_rel=rel)
+
+
+def phase_srb_times(cfg, bal_res, mpc_res):
+    log("== phase 19: ms per tick of the SRB rollouts (marginal, "
+        "scripts/rollout_bench.py's lengths), host enqueue, kernel share")
+    out = {}
+
+    def marginal(name, fn, short, long_, kernel_ms, launches_per_tick):
+        def run(steps):
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            h0 = time.time()
+            t0.record()
+            fn(steps)
+            h1 = time.time()
+            t1.record()
+            torch.cuda.synchronize()
+            return t0.elapsed_time(t1), (h1 - h0) * 1e3
+
+        run(short)
+        best = {short: (1e30, 0.0), long_: (1e30, 0.0)}
+        for _ in range(2):
+            for steps in (short, long_):
+                best[steps] = min(best[steps], run(steps))
+        n = long_ - short
+        ms = (best[long_][0] - best[short][0]) / n
+        host = (best[long_][1] - best[short][1]) / n
+        share = kernel_ms * launches_per_tick / ms
+        log(f"  {name}: {ms:.4f} ms/tick (CUDA events, marginal {long_} - "
+            f"{short} ticks); the host enqueues a tick in {host:.4f} ms; "
+            f"the kernel's device time is {share:.3f} of a tick "
+            f"({kernel_ms:.4f} ms x {launches_per_tick} a tick)")
+        return dict(ms_per_tick=ms, host_ms_per_tick=host,
+                    kernel_share=share, ticks=(short, long_))
+
+    B, Bm = B_SRB, B_SRB_MPC
+    st0 = (init_plant_state(cfg, (B,)), init_commander_carry((B,)))
+    cmd = srb_cmd(B)
+    out["balance"] = marginal(
+        f"balance, K1, B = {B}", lambda n: srb.rollout(
+            *st0, cmd, n, cfg, record=False, **SRB_QP),
+        40, 120, bal_res["k1"]["ms"], 1)
+    stm = (init_plant_state(cfg, (Bm,)), init_commander_carry((Bm,)))
+    cmdm = srb_cmd(Bm)
+    k6 = mpc_res["k6"]["ms"]
+    out["mpc"] = marginal(
+        f"MPC every tick, K6, B = {Bm}", lambda n: srb.rollout(
+            *stm, cmdm, n, cfg, record=False, **SRB_MPC),
+        10, 30, k6, 1)
+    dec_kw = dict(mpc_every=SRB_EVERY,
+                  **{k: v for k, v in SRB_MPC.items() if k != "controller"})
+    out["mpc_decimated"] = marginal(
+        f"MPC every {SRB_EVERY}th tick, K6, B = {Bm}",
+        lambda n: srb.rollout_mpc_decimated(*stm, cmdm, n, cfg, record=False,
+                                            **dec_kw),
+        40, 120, k6, 1.0 / SRB_EVERY)
+    return out
+
+
 def main():
     t_start = time.time()
     smi = phase_device()
@@ -2393,16 +2862,26 @@ def main():
     dense_chk = phase_dense_vs_plain(cfg, gen_d)
     split = phase_split_pipeline(cfg, gen_d)
     xla = phase_prox_xla(cfg, gen_d, main_res)
+    srb_cfg = mit_cheetah_physical_config()
+    srb_bal = phase_srb_balance(srb_cfg)
+    srb_mpc = phase_srb_mpc(srb_cfg)
+    srb_grad = phase_srb_gradients(srb_cfg)
+    srb_times = phase_srb_times(srb_cfg, srb_bal, srb_mpc)
+    srb_k1 = srb_bal["launches"]["qct_fused_solve"]
+    srb_k6 = (srb_mpc["per_tick"]["launches"]["qct_mpc_riccati"],
+              srb_mpc["decimated"]["launches"]["qct_mpc_riccati"])
+    modes = modes + [srb_bal["k1"]]
 
     k1 = {
         "name": "qct_fused_solve", "route": "cuda",
         "source": "quadruped_control_tpu_torch/csrc/qct_fused_polish.cu",
         "replaces": "quadruped_control_tpu/solver/pallas_fused.py:769",
         "launches": (main_res["launches"]["qct_fused_solve"]
-                     + tick_launches["qct_fused_solve"]),
+                     + tick_launches["qct_fused_solve"] + srb_k1),
         "launches_by_path": {
             "solve": main_res["launches"]["qct_fused_solve"],
-            "tick": tick_launches["qct_fused_solve"]},
+            "tick": tick_launches["qct_fused_solve"],
+            "srb_rollout": srb_k1},
         "max_abs_err": max(worst["qct_fused_solve"],
                            max(m["max_abs_err"] for m in modes)),
         "ms": sum(m["ms"] for m in modes[:4]),
@@ -2412,7 +2891,8 @@ def main():
         "library_ms": None,
         "shape": f"4 launches per solve of B={B_MAIN}: "
                  + ", ".join(f"{m['mode']} B={m['batch']}" for m in modes[:4])
-                 + f"; 1 launch per tick of B={B_TICK} (modes[4])",
+                 + f"; 1 launch per tick of B={B_TICK} (modes[4]); 1 "
+                 f"launch per SRB rollout tick of B={B_SRB} (modes[5])",
         "modes": modes,
     }
     k2_entry = {
@@ -2466,11 +2946,21 @@ def main():
         "name": "qct_mpc_riccati", "route": "cuda",
         "source": "quadruped_control_tpu_torch/csrc/qct_mpc.cu",
         "replaces": "quadruped_control_tpu/mpc/pallas_riccati.py:79",
-        "launches": mpc_launches["qct_mpc_riccati"],
-        "max_abs_err": k6["max_abs_err"], "library_ms": None,
+        "launches": mpc_launches["qct_mpc_riccati"] + sum(srb_k6),
+        "launches_by_path": {"mpc_tick": mpc_launches["qct_mpc_riccati"],
+                             "srb_mpc_rollout": srb_k6[0],
+                             "srb_mpc_decimated": srb_k6[1]},
+        "max_abs_err": max(k6["max_abs_err"],
+                           srb_mpc["k6"]["max_abs_err"]),
+        "library_ms": None,
         "shape": f"B={B_TICK}, N={MPC_N}, warm, {MPC_ITERS} iterations, "
-                 f"1 launch per MPC tick (modes: {list(k6['modes'])})",
+                 f"1 launch per MPC tick (modes: {list(k6['modes'])}); "
+                 f"srb: B={B_SRB_MPC}, N={SRB_MPC['mpc_horizon']}, cold, "
+                 f"{SRB_MPC['mpc_iterations']} iterations, 1 launch per "
+                 f"SRB MPC tick or per group of {SRB_EVERY}",
         **mpc_times["k6"], "modes": k6["modes"], "geometry": k6["geometry"],
+        "srb": {k: srb_mpc["k6"][k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by")},
     }
     dense_entries = []
     for key, nm, line, k3 in (
@@ -2511,6 +3001,14 @@ def main():
                         "ms_per_solve", "host_ms_per_solve", "qps",
                         "converged", "launches", "oracle_median")},
                     "prox_xla_path": xla,
+                    "srb_path": {
+                        "balance": {k: srb_bal[k] for k in (
+                            "launches", "wall_s", "stand", "trot",
+                            "teacher_forced_max_err")},
+                        "mpc": {k: srb_mpc[k] for k in (
+                            "per_tick", "decimated",
+                            "teacher_forced_max_err")},
+                        "gradients": srb_grad, "times": srb_times},
                     "build_seconds": build_s,
                     "wall_seconds": time.time() - t_start}))
     log(smi)

@@ -19,10 +19,16 @@ import torch
 from quadruped_control_tpu_torch import config as _config
 from quadruped_control_tpu_torch import resolve_device
 from quadruped_control_tpu_torch.control.commander import CommanderCarry
+from quadruped_control_tpu_torch.control.plant import PlantState
 from quadruped_control_tpu_torch.sim.model import WholeBodyModel
 from quadruped_control_tpu_torch.sim.plant import ContactConfig, WholeBodyState
 from quadruped_control_tpu_torch.solver.ipm import IPMSolution
-from quadruped_control_tpu_torch.types import FootTrajCoeffs, PlannerState
+from quadruped_control_tpu_torch.types import (
+    ComState,
+    FootTrajCoeffs,
+    JointState,
+    PlannerState,
+)
 from quadruped_control_tpu_torch.utils.scenarios import ScenarioBatch
 
 
@@ -54,12 +60,18 @@ def config_to_dict(cfg) -> dict:
     return dataclasses.asdict(cfg)
 
 
+def _flag(a, device):
+    """A bool array of any rank, 0-d included (``np.ascontiguousarray``
+    would make a 0-d array 1-d)."""
+    return torch.from_numpy(np.array(a, dtype=np.bool_)).to(device)
+
+
 def _tensor(a, dtype, device):
     if a is None:
         return None
     a = np.asarray(a)
     if a.dtype == np.bool_:
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        return _flag(a, device)
     return torch.as_tensor(np.array(a), dtype=dtype).to(device)
 
 
@@ -86,9 +98,7 @@ def solution_from_numpy(d: dict, dtype=torch.float32,
             if k not in ("iterations", "converged")}
     return IPMSolution(
         iterations=torch.as_tensor(int(np.asarray(d["iterations"]))),
-        converged=torch.from_numpy(
-            np.ascontiguousarray(np.asarray(d["converged"], dtype=np.bool_))
-        ).to(device),
+        converged=_flag(d["converged"], device),
         **vals)
 
 
@@ -157,10 +167,6 @@ def commander_carry_from_numpy(d, dtype=torch.float32,
     else:
         pl, traj = d, d
 
-    def flag(a):
-        return torch.from_numpy(np.ascontiguousarray(
-            np.asarray(a).astype(np.bool_))).to(device)
-
     gait_time = _tensor(d["gait_time"], dtype, device)
     batch = tuple(gait_time.shape)
     kw = dict(dtype=dtype, device=device)
@@ -170,16 +176,40 @@ def commander_carry_from_numpy(d, dtype=torch.float32,
                                                            device)
 
     return CommanderCarry(
-        standing=flag(d["standing"]), gait_time=gait_time,
+        standing=_flag(d["standing"], device), gait_time=gait_time,
         planner=PlannerState(
-            prev_in_stance=flag(pl["prev_in_stance"]),
-            initialized=flag(pl["initialized"]),
+            prev_in_stance=_flag(pl["prev_in_stance"], device),
+            initialized=_flag(pl["initialized"], device),
             traj=FootTrajCoeffs(coeffs=_tensor(traj["coeffs"], dtype, device),
-                                valid=flag(traj["valid"]))),
+                                valid=_flag(traj["valid"], device))),
         qp_x=opt("qp_x", torch.zeros(batch + (12,), **kw)),
         qp_s=opt("qp_s", torch.ones(batch + (24,), **kw)),
         qp_z=opt("qp_z", torch.ones(batch + (24,), **kw)),
         ref_pose=opt("ref_pose", None), pose_cmd=opt("pose_cmd", None))
+
+
+def plant_state_from_numpy(d, dtype=torch.float32,
+                           device=None) -> PlantState:
+    """An SRB plant state as NumPy arrays -> PlantState on ``device``.
+    ``d`` is nested like the NamedTuples (``com`` -> R, x, xdot, w;
+    ``feet_world``; ``joints`` -> q, qdot): a dict, or the JAX package's
+    PlantState itself (its leaves go through ``np.asarray``)."""
+    device = resolve_device(device)
+    d = _as_dict(d)
+    com, joints = _as_dict(d["com"]), _as_dict(d["joints"])
+    return PlantState(
+        com=ComState(**{k: _tensor(com[k], dtype, device)
+                        for k in ComState._fields}),
+        feet_world=_tensor(d["feet_world"], dtype, device),
+        joints=JointState(**{k: _tensor(joints[k], dtype, device)
+                             for k in JointState._fields}))
+
+
+def rollout_trace_to_numpy(trace) -> dict:
+    """A RolloutTrace of either package (time on the leading axis) -> dict
+    of NumPy arrays by field name; a field that is None stays None."""
+    return {k: None if v is None else np.asarray(to_numpy(v))
+            for k, v in _as_dict(trace).items()}
 
 
 def contact_config_from_dict(d: dict) -> ContactConfig:

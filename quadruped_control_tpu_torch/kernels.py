@@ -62,6 +62,20 @@ def reset_launch_counts():
         launch_counts[k] = 0
 
 
+def refuse_grad(entry: str, *tensors):
+    """Raise when autograd would need a gradient through a kernel entry.
+
+    The kernels (and, to match, their plain versions) have no backward, as
+    their Pallas counterparts have none: without this check a loss would get
+    a silent zero gradient through them. ``None`` entries are skipped."""
+    if torch.is_grad_enabled() and any(
+            torch.is_tensor(t) and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{entry}: a kernel backend has no backward; differentiate "
+            f"through qp_backend='jnp' or mpc_backend='structured' / "
+            f"'condensed' instead")
+
+
 class FusedParams(ctypes.Structure):
     """Mirror of ``QctParams`` in csrc/qct_common.cuh (same order)."""
 

@@ -527,6 +527,8 @@ def solve_mpc_fused(xi0, xi_ref, yaw, feet_world, x_com, stance_schedule,
                     mu=None, state_weights=None, force_weight: float = 1e-6):
     """Drop-in analogue of mpc/horizon.solve_mpc running in K6. Any batch
     shape: instances are flattened (nothing is padded)."""
+    kernels.refuse_grad("solve_mpc_fused", xi0, xi_ref, yaw, feet_world,
+                        x_com, mass, inertia_diag, mu, state_weights)
     bal = cfg.balance
     r = feet_world - x_com[..., None, :]
     yaw = torch.as_tensor(yaw, dtype=xi0.dtype, device=xi0.device)

@@ -22,8 +22,9 @@ classic backward Riccati recursion + forward rollout. H-vector products
 
 Everything is batched over instances: the loops carry (B, nx, nx) Riccati
 matrices. ``state_weights`` may be a per-call tensor, (13,) or per instance
-(..., 13). Gradients are not supported (the JAX package differentiates
-through this solve; the port does not yet).
+(..., 13). The solve is plain PyTorch with static trip counts, so autograd
+flows through it — to the state weights, the initial state and the
+reference (tests/test_torch_grad_mpc.py holds it against ``jax.grad``).
 """
 
 from __future__ import annotations

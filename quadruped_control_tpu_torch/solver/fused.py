@@ -1487,6 +1487,9 @@ def solve_balance_qp_fused(R, R_d, x, xdot, w, x_d, xdot_d, w_d,
     if prox_tail and prox_backend not in ("kernel", "xla"):
         raise ValueError(f"prox_backend must be 'kernel' or 'xla', got "
                          f"{prox_backend!r}")
+    kernels.refuse_grad("solve_balance_qp_fused", R, R_d, x, xdot, w, x_d,
+                        xdot_d, w_d, foot_positions, mass, inertia_diag, mu,
+                        fz_min, fz_max)
     r_masked, b = balance_precursors(
         R, R_d, x, xdot, w, x_d, xdot_d, w_d, foot_positions, stance_mask,
         cfg, mass=mass, inertia_diag=inertia_diag)

@@ -421,6 +421,7 @@ def solve_qp_ipm_fused(Q, c, G, h, iterations: int = 20, tol: float = 3e-5,
     ``dual_residual`` and ``converged = loose KKT at tol | certified``.
     ``device`` (default ``cuda``) is where the solve runs: the kernels on a
     card, their plain PyTorch versions on the CPU."""
+    kernels.refuse_grad("solve_qp_ipm_fused", Q, c, G, h)
     dev = resolve_device(device)
     Q, c, G, h = (torch.as_tensor(a, device=dev) for a in (Q, c, G, h))
     if Q.shape[-2:] != (N, N) or G.shape[-2:] != (M, N):

@@ -96,3 +96,33 @@ def test_default_device_without_card_raises():
     else:
         with pytest.raises(RuntimeError, match="cuda"):
             convert.scenarios_from_numpy(d)
+
+
+@pytest.mark.parametrize("batch", [(), (3,)])
+def test_srb_state_round_trip_keeps_rank(batch):
+    """A batch-less carry's flags stay 0-d (np.ascontiguousarray would make
+    them 1-d, and the commander's footholds would gain a batch axis), and a
+    JAX PlantState / CommanderCarry converts leaf by leaf."""
+    import jax.numpy as jnp
+
+    from quadruped_control_tpu.config import mit_cheetah_physical_config
+    from quadruped_control_tpu.control.commander import init_commander_carry
+    from quadruped_control_tpu.control.plant import init_plant_state
+
+    cfg = mit_cheetah_physical_config()
+    jp = init_plant_state(cfg, batch, dtype=jnp.float64)
+    jc = init_commander_carry(batch, dtype=jnp.float64)
+    tp = convert.plant_state_from_numpy(jp, dtype=torch.float64,
+                                        device="cpu")
+    tc = convert.commander_carry_from_numpy(jc, dtype=torch.float64,
+                                            device="cpu")
+    assert tc.standing.shape == batch and tc.standing.dtype == torch.bool
+    assert tc.planner.initialized.shape == batch
+    assert tc.planner.prev_in_stance.shape == batch + (4,)
+    np.testing.assert_array_equal(tp.joints.q.numpy(), np.asarray(jp.joints.q))
+    np.testing.assert_array_equal(tp.com.R.numpy(), np.asarray(jp.com.R))
+    sol = convert.solution_from_numpy(dict(
+        x=np.zeros(12), z=np.ones(24), s=np.ones(24), iterations=3,
+        gap=0.0, primal_residual=0.0, dual_residual=0.0, converged=True),
+        device="cpu")
+    assert sol.converged.shape == () and bool(sol.converged)

@@ -56,7 +56,10 @@ def test_port_has_the_expected_modules():
                 "mpc/__init__.py", "mpc/horizon.py", "mpc/structured.py",
                 "mpc/fused_riccati.py",
                 # the dense QP solve
-                "solver/fused_ipm.py"):
+                "solver/fused_ipm.py",
+                # the SRB plant and rollouts, loaders, gradients
+                "control/plant.py", "yaml_config.py", "native.py",
+                "solver/admm.py", "solver/diff.py"):
         assert f"quadruped_control_tpu_torch/{rel}" in have
     csrc = ROOT / "quadruped_control_tpu_torch" / "csrc"
     assert sorted(p.name for p in csrc.glob("*.cu")) == [

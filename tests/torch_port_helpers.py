@@ -296,3 +296,42 @@ def dense_objective(problem, x_eq):
     Q, c = problem["orig"][:2]
     return objective_np(Q, c, t2n(x_eq).T.astype(np.float64)
                         * problem["scale"][0])
+
+
+# ---------------------------------------------------------------------------
+# SRB rollouts (fifth slice of the port): states of either package as flat
+# {path: float64 array} dicts, for per-field comparison.
+# ---------------------------------------------------------------------------
+
+def tree_items(obj, prefix=""):
+    """Leaves of nested NamedTuples or dicts (either package's PlantState,
+    CommanderCarry, RolloutTrace, ...) as {"a.b.c": np.ndarray}; None
+    leaves are left out."""
+    if obj is None:
+        return {}
+    if hasattr(obj, "_asdict") or isinstance(obj, dict):
+        out = {}
+        for k, v in (obj if isinstance(obj, dict) else obj._asdict()).items():
+            out.update(tree_items(v, f"{prefix}{k}."))
+        return out
+    a = t2n(obj) if torch.is_tensor(obj) else np.asarray(obj)
+    return {prefix[:-1]: a}
+
+
+def assert_trees_close(got, want, tol, what=""):
+    """Every leaf of ``want`` (JAX) present in ``got`` (port) with the same
+    shape; bool leaves exactly, float leaves within tol * (1 + max|want|),
+    NaN where the other has NaN."""
+    g, w = tree_items(got), tree_items(want)
+    assert sorted(g) == sorted(w), (what, sorted(g), sorted(w))
+    for k, wv in w.items():
+        gv = g[k]
+        assert gv.shape == wv.shape, (what, k, gv.shape, wv.shape)
+        if wv.dtype == np.bool_:
+            np.testing.assert_array_equal(gv, wv, err_msg=f"{what} {k}")
+            continue
+        wv = wv.astype(np.float64)
+        scale = 1.0 + (np.nanmax(np.abs(wv)) if wv.size else 0.0)
+        np.testing.assert_allclose(gv.astype(np.float64), wv, rtol=0.0,
+                                   atol=tol * scale, equal_nan=True,
+                                   err_msg=f"{what} {k}")
