@@ -77,6 +77,18 @@ through K1 raising; and ms per tick of the three rollouts (marginal, the
 lengths of rollout_bench.py) with the host's enqueue time and the kernel's
 share of the tick.
 
+Then scenario sharding (phase 20, parallel/mesh.py): scenario_mesh(), the
+balance tick and the warm-8 MPC tick decimated every 2nd tick over meshes of
+1 and [cuda:0] * 4 entries at B = 4096, bitwise the unsharded loops with
+exactly shards x the launches; shard_rollout_whole_body with K5 against its
+unsharded run; solve_scenarios_sharded at B = 32768 (each shard bitwise its
+slice's own solve, x against the whole batch in float64), then with the
+fraction through an NCCL all_reduce; entry() and dryrun_multichip; ms per
+tick at 1 and 4 shards. And checkpoints (phase 21): a run_checkpointed
+rollout interrupted and resumed, bitwise the uninterrupted one, and
+profiling.benchmark of the fused solve. K6 is held bitwise to its serial
+body (qct_mpc_serial) in phases 10, 11 and 17.
+
 Any failed phase ends the run with a non-zero exit code; nothing is caught and
 carried on. Without a CUDA device it exits with code 2 and prints no result.
 
@@ -86,8 +98,10 @@ one JSON line ``{"kernels": [...]}``, and as the LAST line
 """
 
 import json
+import socket
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -116,9 +130,15 @@ from quadruped_control_tpu_torch.control.plant import (  # noqa: E402
     init_plant_state,
     plant_step,
 )
+from quadruped_control_tpu_torch.entry import (  # noqa: E402
+    dryrun_multichip,
+    entry,
+)
 from quadruped_control_tpu_torch.mpc import fused_riccati as fr  # noqa: E402
 from quadruped_control_tpu_torch.mpc import structured as mst  # noqa: E402
 from quadruped_control_tpu_torch.ops.dynamics import SWING_ROW_RELAX  # noqa: E402
+from quadruped_control_tpu_torch.parallel import distributed as pdist  # noqa: E402
+from quadruped_control_tpu_torch.parallel import mesh as pmesh  # noqa: E402
 from quadruped_control_tpu_torch.sim import (  # noqa: E402
     ContactConfig,
     init_whole_body_state,
@@ -136,6 +156,8 @@ from quadruped_control_tpu_torch.solver.ipm import equilibrate  # noqa: E402
 from quadruped_control_tpu_torch.solver.reference import (  # noqa: E402
     solve_qp_batch_oracle,
 )
+from quadruped_control_tpu_torch.utils import checkpoint as ckpt  # noqa: E402
+from quadruped_control_tpu_torch.utils import profiling  # noqa: E402
 from quadruped_control_tpu_torch.utils.scenarios import (  # noqa: E402
     assemble_qp_batch,
     commander_carry_walk,
@@ -1313,7 +1335,8 @@ def phase_tick(cfg):
     times["k1_tick"]["max_abs_err"] = max(k1_errs)
     times.update(launches=launches, stand=dict(
         z_mean=z.mean().item(), standing=standing, converged=conv),
-        trot=dict(x_travel=xtrav, upright=upright, converged=conv2))
+        trot=dict(x_travel=xtrav, upright=upright, converged=conv2),
+        objects=dict(tick=tick, model=model, res=res, cmd=cmd))
     return times
 
 
@@ -1532,6 +1555,41 @@ def hold_mpc_to_plain(name, cfg, block, kern, plain, N, dt):
     return max_abs, stats
 
 
+def mpc_serial(block, warm, st, yaw=None, phys=None):
+    """K6's serial body (``qct_mpc_serial``: one robot per thread, the
+    kernel's arithmetic before its lane split) on the packed entry's inputs
+    (``yaw`` / ``phys`` as the unpacked entry passes them)."""
+    out = kernels.mpc_serial(
+        block.float().contiguous(), yaw, phys,
+        None if warm is None else tuple(a.float().contiguous() for a in warm),
+        st.params(), st.n_steps)
+    return out
+
+
+def hold_mpc_to_serial(name, kern, serial):
+    """Fail unless every output of K6 (forces, diag and, warm, the [s | z |
+    F] carry) is bitwise its serial body's, a NaN equal to any NaN; name
+    the first output that differs and its first lanes."""
+    for nm, a, b_ in zip(("F", "diag", "warm_out"), kern, serial):
+        if a is None and b_ is None:
+            continue
+        if a is None or b_ is None or a.shape != b_.shape:
+            fail(f"K6 {name}: {nm} missing or of another shape than its "
+                 f"serial body's")
+        same = ((a.view(torch.int32) == b_.view(torch.int32))
+                | (a.isnan() & b_.isnan()))
+        if not bool(same.all()):
+            lanes = torch.nonzero(~same.all(0)).flatten().tolist()
+            row = int(torch.nonzero(~same[:, lanes[0]]).flatten()[0])
+            fail(f"K6 {name}: {nm} not bitwise its serial body on "
+                 f"{len(lanes)} lanes (first {lanes[:8]}; lane {lanes[0]} "
+                 f"first differs at row {row}: "
+                 f"{a[row, lanes[0]].item()!r} vs "
+                 f"{b_[row, lanes[0]].item()!r})")
+    log(f"  K6 {name}: bitwise its serial body (qct_mpc_serial), every "
+        f"output")
+
+
 def phase_commander_mpc_vs_plain(cfg):
     log(f"== phase 9: K4 with the MPC block (N = {MPC_N}) vs its plain "
         f"version, B = {B_TICK}, 8 chained ticks")
@@ -1595,11 +1653,13 @@ def mpc_tick_vs_plain(name, cfg, tick, state_p, carry_p, warm_p, cmd_p,
     if not torch.equal(k4[9], p4[9]):
         fail(f"{name}: K4's MPC block differs from its plain version")
     k6 = _mpc_solve(k4[9], warm_p, tick.settings)
+    hold_mpc_to_serial(name, k6, mpc_serial(k4[9], warm_p, tick.settings))
     st6, k6c, what = tick.settings, k6, name
     if k6_iterations is not None:
         st6 = _mpc_settings(cfg, tick.mpc_horizon, tick.mpc_dt, k6_iterations)
         k6c = _mpc_solve(k4[9], warm_p, st6)
         what = f"{name} at {k6_iterations} iterations"
+        hold_mpc_to_serial(what, k6c, mpc_serial(k4[9], warm_p, st6))
     p6 = fr.packed_plain(k4[9], warm_p, st6)
     p6 = p6 if warm_p is not None else p6 + (None,)
     torch.cuda.synchronize()
@@ -1613,7 +1673,7 @@ def mpc_tick_vs_plain(name, cfg, tick, state_p, carry_p, warm_p, cmd_p,
     hold_substep_to_serial(name, k5, s5)
     e5 = hold_substep_to_plain(name, k5, p5)
     log(f"  {name}: K4 + MPC block bitwise its serial body and equal to "
-        f"plain, K6 within tolerance "
+        f"plain, K6 bitwise its serial body and within tolerance of plain "
         f"(max|dF| {e6:.2e}), state after the tick bitwise K5's serial body "
         f"and within tolerance of the plain version (max {e5:.2e})")
     return max(e4, e5), e6
@@ -1672,7 +1732,8 @@ def phase_mpc_tick(cfg):
               and counts["qct_fused_solve"] == 0
               and counts["qct_assemble"] == 0
               and counts["qct_substep_serial"] == 0
-              and counts["qct_commander_serial"] == 0,
+              and counts["qct_commander_serial"] == 0
+              and counts["qct_mpc_serial"] == 0,
               f"{what}: exactly 3 launches per tick (K4, K6, K5), no K1: "
               f"{counts}")
 
@@ -1819,6 +1880,7 @@ def phase_mpc_kernel_vs_plain(cfg, mpc):
     def run(name, block, warm, st):
         nonlocal worst
         kern = _mpc_solve(block, warm, st)
+        hold_mpc_to_serial(name, kern, mpc_serial(block, warm, st))
         t0 = time.time()
         plain = fr.packed_plain(block, warm, st)
         torch.cuda.synchronize()
@@ -1882,6 +1944,18 @@ def phase_mpc_kernel_vs_plain(cfg, mpc):
     check(torch.equal(Ff.reshape(B, -1).t(), cold[0]),
           "K6: the unpacked entry (per-lane constants) equals the packed one "
           "on the same lanes, bitwise")
+    # The unpacked entry's own arguments (per-robot yaw and constants) through
+    # both bodies, on the ragged batch.
+    bal = cfg.balance
+    phys = torch.tensor([bal.mass, *bal.inertia_diag, bal.mu, bal.fz_min,
+                         bal.fz_max], device=DEV)[:, None].expand(7, n)
+    phys = phys.contiguous()
+    yaw_n = blk8[2, :n].contiguous()
+    blk_n = blk8[:, :n].contiguous()
+    hold_mpc_to_serial(
+        f"unpacked entry's arguments (per-robot yaw, constants), B = {n}",
+        kernels.mpc_riccati(blk_n, yaw_n, phys, None, st15.params(), MPC_N),
+        mpc_serial(blk_n, None, st15, yaw_n, phys))
     kern_u = (Ff.reshape(B, -1).t().contiguous(),
               torch.stack([sf.converged.float(), sf.primal_residual,
                            sf.dual_residual, sf.gap]), None)
@@ -1895,6 +1969,7 @@ def phase_mpc_kernel_vs_plain(cfg, mpc):
     bad[0, 0] = float("nan")
     bad[9, 1] = 1.0e6
     kb = _mpc_solve(bad, None, st15)
+    hold_mpc_to_serial("poisoned lanes", kb, mpc_serial(bad, None, st15))
     torch.cuda.synchronize()
     check(torch.equal(kb[0][:, 2:], cold[0][:, 2:])
           and torch.equal(kb[1][:, 2:], cold[1][:, 2:]),
@@ -1964,6 +2039,7 @@ def phase_mpc_times(cfg, mpc):
                      serial_ms=ms4s)
 
     ms6 = event_ms(lambda: tick.solve(k4[9], res2.warm), 10)
+    ms6s = event_ms(lambda: mpc_serial(k4[9], res2.warm, tick.settings), 3)
     t0 = time.time()
     fr.packed_plain(k4[9], res2.warm, tick.settings)
     torch.cuda.synchronize()
@@ -1982,7 +2058,7 @@ def phase_mpc_times(cfg, mpc):
     b6n, by6n = bound_ms(B * mpc_bytes(24, False),
                          B * ops_mpc(24, st24.iterations, False))
     out["k6"] = dict(ms=ms6, plain_ms=plain6, bound_ms=b6, bound_by=by6,
-                     operations_per_lane=ops6,
+                     serial_ms=ms6s, operations_per_lane=ops6,
                      cold15=dict(ms=ms6c, bound_ms=b6c, bound_by=by6c),
                      n24_cold25=dict(ms=ms6n, bound_ms=b6n, bound_by=by6n))
     F_p = tick.solve(k4[9], res2.warm)[0]
@@ -1993,7 +2069,8 @@ def phase_mpc_times(cfg, mpc):
     ms_tick = out["summary"]["warm-8"]["ms_per_tick"]
     log(f"  K4 + MPC block: {ms4:.4f} ms (its serial body {ms4s:.4f} ms, "
         f"plain {plain4:.0f} ms, bound {b4:.5f} ms, {by4})")
-    log(f"  K6 warm-8: {ms6:.4f} ms (plain {plain6:.0f} ms, bound {b6:.5f} "
+    log(f"  K6 warm-8: {ms6:.4f} ms (its serial body {ms6s:.4f} ms, plain "
+        f"{plain6:.0f} ms, bound {b6:.5f} "
         f"ms, {by6}, {ops6} operations per lane); cold-15 {ms6c:.4f} ms "
         f"(bound {b6c:.5f} ms); N = 24 cold, 25 iterations {ms6n:.4f} ms "
         f"(bound {b6n:.5f} ms)")
@@ -2678,6 +2755,18 @@ def phase_srb_mpc(cfg):
     st = _mpc_settings(cfg, N, SRB_MPC["mpc_dt"], SRB_MPC["mpc_iterations"])
     block = srb_k6_block(cfg, walk.plant, walk.carry, cmd)
     kern = _mpc_solve(block, None, st)
+    hold_mpc_to_serial(f"SRB loop's block, B = {B_SRB_MPC}", kern,
+                       mpc_serial(block, None, st))
+    bal = cfg.balance
+    phys = torch.tensor([bal.mass, *bal.inertia_diag, bal.mu, bal.fz_min,
+                         bal.fz_max], device=DEV)[:, None].expand(
+        7, B_SRB_MPC).contiguous()
+    yaw = block[2].contiguous()
+    hold_mpc_to_serial(
+        "SRB loop's block with solve_mpc_fused's per-robot yaw and "
+        "constants", kernels.mpc_riccati(block, yaw, phys, None, st.params(),
+                                         N),
+        mpc_serial(block, None, st, yaw, phys))
     plain = fr.packed_plain(block, None, st) + (None,)
     torch.cuda.synchronize()
     max_abs, stats = hold_mpc_to_plain(
@@ -2832,6 +2921,343 @@ def phase_srb_times(cfg, bal_res, mpc_res):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Scenario sharding (parallel/mesh.py) and checkpoints (utils/checkpoint.py)
+# ---------------------------------------------------------------------------
+
+SHARD_TICKS = 60
+SHARD_MPC_EVERY = 2
+B_SOLVE = 32768
+
+
+def _counted(fn):
+    """(fn(), the launch counts of that call alone)."""
+    kernels.reset_launch_counts()                  # counts set to 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(kernels.launch_counts)        # counts read
+
+
+def _bitwise_trees(a, b):
+    """Every tensor leaf of two trees has the same bytes."""
+    la, lb = pmesh.tree_leaves(a), pmesh.tree_leaves(b)
+    return len(la) == len(lb) and all(
+        x.shape == y.shape and x.dtype == y.dtype
+        and torch.equal(x.contiguous().view(torch.uint8),
+                        y.contiguous().view(torch.uint8))
+        for x, y in zip(la, lb))
+
+
+def _only(counts, expected, what):
+    """Fail unless the counts are exactly ``expected`` (zero elsewhere)."""
+    want = {k: expected.get(k, 0) for k in counts}
+    check(counts == want, f"{what}: launches exactly {expected}, nothing "
+          f"else ({ {k: v for k, v in counts.items() if v} })")
+
+
+def _marginal_ms(fn, lo, hi):
+    """ms per tick of ``fn(steps)``: CUDA events around runs of ``lo`` and
+    ``hi`` ticks (best of two each, after a warm-up), (hi - lo) marginal."""
+    def once(steps):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0.record()
+        fn(steps)
+        t1.record()
+        torch.cuda.synchronize()
+        return t0.elapsed_time(t1)
+
+    once(lo)
+    best = {lo: 1e30, hi: 1e30}
+    for _ in range(2):
+        for steps in (lo, hi):
+            best[steps] = min(best[steps], once(steps))
+    return (best[hi] - best[lo]) / (hi - lo)
+
+
+def _free_port():
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        return sk.getsockname()[1]
+
+
+def phase_sharding(tick_cfg, tick_res, mpc_res, mpc_times, gen):
+    log(f"== phase 20: scenario sharding on the card (parallel/mesh.py), B = "
+        f"{B_TICK}, {N_SUBSTEPS} substeps, meshes of 1 and 4 entries")
+    everything = pmesh.scenario_mesh()
+    log(f"  scenario_mesh(): {len(everything)} entries {everything}")
+    check(len(everything) == torch.cuda.device_count(),
+          "scenario_mesh() has one entry per card")
+    dev0 = everything[0]
+    meshes = ((1, pmesh.scenario_mesh([dev0])),
+              (4, pmesh.scenario_mesh([dev0] * 4)))
+    out = {"mesh_len": len(everything), "ms_per_tick": {}}
+
+    # The balance tick of phase 7 (K4 -> K1 -> K5) from its stood-up state.
+    obj = tick_res["objects"]
+    tick, res, cmd = obj["tick"], obj["res"], obj["cmd"]
+    T = SHARD_TICKS
+    whole, cw = _counted(lambda: ftick.rollout_whole_body_fused(
+        res.plant, res.carry, cmd, T, tick, n_substeps=N_SUBSTEPS))
+    _only(cw, {"qct_commander_pre": T, "qct_fused_solve": T,
+               "qct_substep": T}, f"unsharded balance tick, {T} ticks")
+    for n, mesh in meshes:
+        run = pmesh.shard_rollout_whole_body_fused(mesh, tick,
+                                                   n_substeps=N_SUBSTEPS)
+        got, c = _counted(lambda: run(res.plant, res.carry, cmd, T))
+        check(_bitwise_trees((got.plant, got.carry),
+                             (whole.plant, whole.carry)),
+              f"balance tick over {n} shard(s), {T} ticks: plant and carry "
+              f"bitwise the unsharded loop's")
+        _only(c, {"qct_commander_pre": n * T, "qct_fused_solve": n * T,
+                  "qct_substep": n * T},
+              f"balance tick over {n} shard(s): {n} x 3 launches a tick")
+
+    # The warm-8 MPC tick of phase 10, decimated (K6 every 2nd tick).
+    mtick, mres, mcmd = mpc_res["tick"], mpc_res["res"], mpc_res["cmd"]
+    E = SHARD_MPC_EVERY
+    mwhole, cw = _counted(lambda: ftick.rollout_whole_body_fused_decimated(
+        mres.plant, mres.carry, mcmd, T, mtick, mpc_every=E,
+        n_substeps=N_SUBSTEPS))
+    _only(cw, {"qct_commander_pre": T, "qct_mpc_riccati": T // E,
+               "qct_substep": T}, f"unsharded decimated MPC tick, {T} ticks")
+    for n, mesh in meshes:
+        run = pmesh.shard_rollout_whole_body_fused(
+            mesh, mtick, n_substeps=N_SUBSTEPS, mpc_every=E)
+        got, c = _counted(lambda: run(mres.plant, mres.carry, mcmd, T))
+        check(_bitwise_trees((got.plant, got.carry),
+                             (mwhole.plant, mwhole.carry)),
+              f"decimated warm-8 MPC tick over {n} shard(s), {T} ticks: "
+              f"plant and carry bitwise the unsharded loop's")
+        _only(c, {"qct_commander_pre": n * T, "qct_mpc_riccati": n * T // E,
+                  "qct_substep": n * T},
+              f"decimated MPC tick over {n} shard(s): {n} x (K4, K6, K5) a "
+              f"solving group, {n} x (K4, K5) a held tick")
+
+    # ms per tick, marginal (60 - 10 ticks), unsharded and sharded.
+    for name, tck, r_, c_, every in (("balance", tick, res, cmd, None),
+                                     ("mpc_decimated", mtick, mres, mcmd, E)):
+        def unsharded(steps, tck=tck, r_=r_, c_=c_, every=every):
+            if every is None:
+                return ftick.rollout_whole_body_fused(
+                    r_.plant, r_.carry, c_, steps, tck,
+                    n_substeps=N_SUBSTEPS)
+            return ftick.rollout_whole_body_fused_decimated(
+                r_.plant, r_.carry, c_, steps, tck, mpc_every=every,
+                n_substeps=N_SUBSTEPS)
+
+        row = {"unsharded": _marginal_ms(unsharded, 10, T)}
+        for n, mesh in meshes:
+            run = pmesh.shard_rollout_whole_body_fused(
+                mesh, tck, n_substeps=N_SUBSTEPS, mpc_every=every)
+            row[f"shards_{n}"] = _marginal_ms(
+                lambda steps, run=run, r_=r_, c_=c_: run(r_.plant, r_.carry,
+                                                         c_, steps), 10, T)
+        out["ms_per_tick"][name] = row
+    ref8 = tick_res["ms_per_tick"]
+    ref12 = mpc_times["summary"]["warm-8"]["ms_per_tick"]
+    log(f"  balance tick ms/tick: unsharded "
+        f"{out['ms_per_tick']['balance']['unsharded']:.4f}, 1 shard "
+        f"{out['ms_per_tick']['balance']['shards_1']:.4f}, 4 shards "
+        f"{out['ms_per_tick']['balance']['shards_4']:.4f} (phase 8's warm "
+        f"tick: {ref8:.4f})")
+    log(f"  decimated MPC tick (every {E}) ms/tick: unsharded "
+        f"{out['ms_per_tick']['mpc_decimated']['unsharded']:.4f}, 1 shard "
+        f"{out['ms_per_tick']['mpc_decimated']['shards_1']:.4f}, 4 shards "
+        f"{out['ms_per_tick']['mpc_decimated']['shards_4']:.4f} (phase 12's "
+        f"warm-8 tick, K6 every tick: {ref12:.4f})")
+
+    # shard_rollout_whole_body with the fused stepper (K5), 3 ticks.
+    model = obj["model"]
+    contact = ContactConfig()
+    stepper = fsub.make_fused_stepper(model, tick_cfg, contact)
+    kw = dict(n_substeps=N_SUBSTEPS, qp_iterations=8)
+    plant0 = init_whole_body_state(tick_cfg, (B_TICK,))
+    carry0 = init_commander_carry((B_TICK,))
+    zero = torch.zeros((B_TICK, 6), device=DEV)
+    from quadruped_control_tpu_torch.sim.rollout import rollout_whole_body
+    ref, cw = _counted(lambda: rollout_whole_body(
+        plant0, carry0, zero, 3, tick_cfg, model, contact, record=False,
+        stepper=stepper, **kw))
+    _only(cw, {"qct_substep": 3}, "unsharded rollout_whole_body with the "
+          "fused stepper")
+    gaps = {}
+    for n, mesh in meshes:
+        run = pmesh.shard_rollout_whole_body(mesh, tick_cfg, model, contact,
+                                             stepper=stepper, **kw)
+        got, c = _counted(lambda: run(plant0, carry0, zero, 3))
+        _only(c, {"qct_substep": 3 * n},
+              f"rollout_whole_body over {n} shard(s): K5 once a tick a shard")
+        gx = (got.plant.x - ref.plant.x).abs().max().item()
+        gu = (got.plant.u - ref.plant.u).abs().max().item()
+        gaps[n] = dict(x=gx, u=gu)
+        check(gx <= 1e-8 and gu <= 1e-6 and torch.equal(
+            got.carry.standing, ref.carry.standing),
+            f"rollout_whole_body over {n} shard(s), 3 ticks: max|dx| "
+            f"{gx:.3e} <= 1e-8, max|du| {gu:.3e} <= 1e-6, standing equal")
+    out["whole_body_gap"] = gaps
+
+    # solve_scenarios_sharded at B = 32768 (the plain batched IPM). The
+    # shards must be the per-instance solve of their slices: bitwise the
+    # unsharded solve of each slice on its own (the same calls at the same
+    # batch), flags and fraction included. Against the whole batch solved at
+    # once, float32 differs: the batched cuBLAS / cuSOLVER calls of the plain
+    # IPM round otherwise at another batch size, and the balance QP's flat
+    # internal-force directions carry that to newtons on some lanes (55.7 N
+    # on one lane over 4 shards, NVIDIA H100 80GB HBM3; PERF.md §6). That
+    # gap, the flags' agreement and the objective gap are printed; x against
+    # the whole batch is held in float64 (1e-5).
+    cfg = mit_cheetah_config()
+    s = grf_scenarios(gen, B_SOLVE, cfg, device=DEV)
+    qp = assemble_qp_batch(s, cfg)
+    Qd, cd = qp.Q.double(), qp.c.double()
+
+    def objective(x):
+        xd = x.double()
+        return (0.5 * torch.einsum("bi,bij,bj->b", xd, Qd, xd)
+                + (cd * xd).sum(-1))
+
+    (x1, c1, f1), cw = _counted(lambda: pmesh.solve_scenarios_sharded(s, cfg))
+    _only(cw, {}, "solve_scenarios_sharded (no kernel)")
+    o1 = objective(x1)
+    s64 = pmesh.tree_map(lambda a: a.double() if a.is_floating_point()
+                         else a, s)
+    x64, c64, f64 = pmesh.solve_scenarios_sharded(s64, cfg)
+    solve = {"unsharded_fraction": float(f1),
+             "unsharded_fraction_f64": float(f64)}
+    for n, mesh in meshes:
+        sharded = pmesh.shard_scenarios(s, mesh)
+        x, c, f = pmesh.solve_scenarios_sharded(sharded, cfg)
+        parts = [pmesh.solve_scenarios_sharded(sh, cfg)
+                 for sh in sharded.shards]
+        xp = torch.cat([p_[0] for p_ in parts])
+        cp = torch.cat([p_[1] for p_ in parts])
+        check(_bitwise_trees((x, c), (xp, cp))
+              and float(f) == float(cp.double().mean().to(f.dtype)),
+              f"solve_scenarios_sharded over {n} shard(s), B = {B_SOLVE}: "
+              f"x and flags bitwise each slice's own solve, fraction "
+              f"{float(f):.5f} their mean")
+        dx = (x - x1).abs().amax(-1)
+        both = c & c1
+        rel = ((objective(x) - o1).abs() / (1.0 + o1.abs()))[both]
+        xs, cs, fs = pmesh.solve_scenarios_sharded(
+            pmesh.shard_scenarios(s64, mesh), cfg)
+        gap64 = (xs - x64).abs().max().item()
+        row = dict(x_gap=dx.max().item(),
+                   x_gap_certified=dx[both].max().item(),
+                   lanes_above_1e5=int((dx > 1e-5).sum().item()),
+                   flags_differ=int((c != c1).sum().item()),
+                   objective_gap_median=rel.median().item(),
+                   objective_gap_max=rel.max().item(), fraction=float(f),
+                   x_gap_f64=gap64, flags_differ_f64=int(
+                       (cs != c64).sum().item()), fraction_f64=float(fs))
+        solve[f"shards_{n}"] = row
+        log(f"  against the whole batch at once, float32: max|dx| "
+            f"{row['x_gap']:.3e} ({row['lanes_above_1e5']} lanes above "
+            f"1e-5; {row['x_gap_certified']:.3e} on lanes both certify), "
+            f"flags differ on {row['flags_differ']} lanes, fraction "
+            f"{float(f):.5f} vs {float(f1):.5f}, objective gap on lanes both "
+            f"certify median {row['objective_gap_median']:.2e} max "
+            f"{row['objective_gap_max']:.2e}; float64: max|dx| {gap64:.3e}, "
+            f"flags differ on {row['flags_differ_f64']} lanes")
+        check(gap64 <= 1e-5 and float(f) >= 0.95 and float(fs) >= 0.95,
+              f"solve_scenarios_sharded over {n} shard(s), float64: max|dx| "
+              f"{gap64:.3e} <= 1e-5 against the whole batch at once; "
+              f"fractions >= 0.95")
+    # The same solve with the fraction through an NCCL all_reduce.
+    pdist.initialize(f"localhost:{_free_port()}", 1, 0)
+    try:
+        check(pdist._is_initialized() and pdist.is_primary()
+              and torch.distributed.get_backend() == "nccl",
+              "initialize('localhost:<port>', 1, 0): joined over NCCL")
+        _, c_d, f_d = pmesh.solve_scenarios_sharded(
+            pmesh.shard_scenarios(s, meshes[1][1]), cfg)
+        local = c_d.double().mean().to(f_d.dtype)
+        check(float(f_d) == float(local),
+              f"the fraction through the NCCL all_reduce equals the local "
+              f"mean exactly ({float(f_d):.6f})")
+    finally:
+        torch.distributed.destroy_process_group()
+    solve["nccl_fraction"] = float(f_d)
+    out["solve"] = solve
+
+    # The entry points.
+    forward, args = entry()
+    xe, ce = forward(*args)
+    torch.cuda.synchronize()
+    check(tuple(xe.shape) == (256, 12) and xe.device.type == "cuda"
+          and bool(torch.isfinite(xe).all())
+          and ce.float().mean().item() > 0.8,
+          f"entry(): forward on the card, x (256, 12) finite, converged "
+          f"{ce.float().mean().item():.4f} > 0.8")
+    dryrun_multichip(torch.cuda.device_count())
+    check(True, f"dryrun_multichip({torch.cuda.device_count()}) ran its four "
+          f"stages")
+    return out
+
+
+CKPT_CHUNKS, CKPT_TICKS = 4, 50
+
+
+def phase_checkpoint(tick_res, main_res, gen):
+    log(f"== phase 21: checkpoints on the card: run_checkpointed over "
+        f"{CKPT_CHUNKS} chunks of {CKPT_TICKS} fused balance ticks, B = "
+        f"{B_TICK}")
+    obj = tick_res["objects"]
+    tick, res, cmd = obj["tick"], obj["res"], obj["cmd"]
+
+    def chunk(state, _i):
+        plant, carry, warm = state
+        r = ftick.rollout_whole_body_fused(plant, carry, cmd, CKPT_TICKS,
+                                           tick, n_substeps=N_SUBSTEPS,
+                                           warm=warm)
+        return (r.plant, r.carry, r.warm)
+
+    init = (res.plant, res.carry, res.warm)
+    ref = init
+    for i in range(CKPT_CHUNKS):
+        ref = chunk(ref, i)
+    with tempfile.TemporaryDirectory() as d:
+        ckpt.run_checkpointed(chunk, init, n_chunks=2, directory=d)
+        check(ckpt.latest_step(d) == 2, "the interrupted run left step 2")
+        restored, _ = ckpt.restore_checkpoint(d, init)
+        leaves = pmesh.tree_leaves(restored)
+        check(all(a.device.type == "cuda" for a in leaves)
+              and len(leaves) == len(pmesh.tree_leaves(init)),
+              f"restored leaves on the card ({len(leaves)} of them)")
+        done = []
+
+        def counted(state, i):
+            done.append(i)
+            return chunk(state, i)
+
+        out = ckpt.run_checkpointed(counted, init, n_chunks=CKPT_CHUNKS,
+                                    directory=d)
+        torch.cuda.synchronize()
+        check(done == list(range(2, CKPT_CHUNKS)),
+              f"the resumed run ran chunks {done} only")
+        check(_bitwise_trees(out, ref),
+              "the resumed run is bitwise the uninterrupted one (plant, "
+              "carry, QP warm carry)")
+
+    # profiling.benchmark of phase 4b's solve on one batch of B = 32768.
+    cfg = mit_cheetah_config()
+    bal = cfg.balance
+    s = grf_scenarios(gen, B_MAIN, cfg, device=DEV)
+    br = profiling.benchmark(
+        pf.solve_balance_qp_fused, s.R, s.R_d, s.x, s.xdot, s.w, s.x_d,
+        s.xdot_d, s.w_d, s.feet, s.stance, bal, name="solve_balance_qp_fused",
+        reps=REPS, items=B_MAIN, **MAIN_SCHEDULE)
+    log(f"  profiling.benchmark: {br} (phase 4b, CUDA events over fresh "
+        f"inputs: {main_res['ms_per_solve']:.4f} ms)")
+    check(br.device == torch.cuda.get_device_name(0) and br.steady_seconds > 0,
+          "benchmark timed on the card")
+    return dict(benchmark_steady_ms=br.steady_seconds * 1e3,
+                benchmark_first_s=br.compile_seconds,
+                phase4b_ms=main_res["ms_per_solve"])
+
+
 def main():
     t_start = time.time()
     smi = phase_device()
@@ -2867,6 +3293,10 @@ def main():
     srb_mpc = phase_srb_mpc(srb_cfg)
     srb_grad = phase_srb_gradients(srb_cfg)
     srb_times = phase_srb_times(srb_cfg, srb_bal, srb_mpc)
+    gen_s = torch.Generator(device=DEV)
+    gen_s.manual_seed(SEED + 20)
+    sharding = phase_sharding(tick_cfg, tick_res, mpc_res, mpc_times, gen_s)
+    checkpoint = phase_checkpoint(tick_res, main_res, gen_s)
     srb_k1 = srb_bal["launches"]["qct_fused_solve"]
     srb_k6 = (srb_mpc["per_tick"]["launches"]["qct_mpc_riccati"],
               srb_mpc["decimated"]["launches"]["qct_mpc_riccati"])
@@ -2957,7 +3387,9 @@ def main():
                  f"1 launch per MPC tick (modes: {list(k6['modes'])}); "
                  f"srb: B={B_SRB_MPC}, N={SRB_MPC['mpc_horizon']}, cold, "
                  f"{SRB_MPC['mpc_iterations']} iterations, 1 launch per "
-                 f"SRB MPC tick or per group of {SRB_EVERY}",
+                 f"SRB MPC tick or per group of {SRB_EVERY}; serial_ms: "
+                 f"its serial body (one robot per thread, qct_mpc_serial), "
+                 f"the bitwise hold of phases 10, 11 and 17",
         **mpc_times["k6"], "modes": k6["modes"], "geometry": k6["geometry"],
         "srb": {k: srb_mpc["k6"][k] for k in (
             "ms", "plain_ms", "bound_ms", "bound_by")},
@@ -3009,6 +3441,7 @@ def main():
                             "per_tick", "decimated",
                             "teacher_forced_max_err")},
                         "gradients": srb_grad, "times": srb_times},
+                    "sharding": sharding, "checkpoint": checkpoint,
                     "build_seconds": build_s,
                     "wall_seconds": time.time() - t_start}))
     log(smi)

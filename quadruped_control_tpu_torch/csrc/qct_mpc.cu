@@ -32,8 +32,14 @@
 // __syncwarp() only, never at a block-wide barrier; a robot slot past the
 // batch runs along on the last robot's inputs and writes nothing. The launch
 // geometry comes from kernels.mpc_launch_geometry.
+//
+// The library also builds K6's serial body (qct_mpc_serial.cuh, one robot
+// per thread, the kernel's arithmetic before the lane split) as
+// qct_mpc_serial: the bitwise hold of the lane kernel, which no path of
+// the port launches.
 #include "qct_launch.cuh"
 #include "qct_mpc.cuh"
+#include "qct_mpc_serial.cuh"
 
 __global__ void __launch_bounds__(QMPC_MAX_THREADS, QMPC_MIN_BLOCKS)
     qct_mpc_riccati_kernel(QctMpcIO io, int B, QctMpcParams p) {
@@ -68,6 +74,29 @@ extern "C" int qct_mpc_riccati(const float* block, const float* yaw,
                  warm_sched, F, diag, warm_out, scratch};
   qct_mpc_riccati_kernel<<<blocks, threads, shared_bytes,
                            (cudaStream_t)stream>>>(io, B, *params);
+  return (int)cudaGetLastError();
+}
+
+__global__ void qct_mpc_serial_kernel(QctMpcIO io, int B, QctMpcParams p) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= B) return;  // ragged edge
+  qmpc_serial::mpc_instance(io, B, i, p);
+}
+
+// K6's serial body over B robots: the lane kernel's arguments, but a
+// (324 N, B) scratch (component-major, qct_mpc_serial.cuh).
+extern "C" int qct_mpc_serial(const float* block, const float* yaw,
+                              const float* phys, const float* warm_F,
+                              const float* warm_sz, const float* warm_sched,
+                              float* F, float* diag, float* warm_out,
+                              float* scratch, int B,
+                              const QctMpcParams* params, void* stream) {
+  if (B <= 0) return 0;
+  QctMpcIO io = {block, yaw,  phys, warm_F,   warm_sz,
+                 warm_sched, F, diag, warm_out, scratch};
+  const int block_size = qct_block_size(B);
+  qct_mpc_serial_kernel<<<(B + block_size - 1) / block_size, block_size, 0,
+                          (cudaStream_t)stream>>>(io, B, *params);
   return (int)cudaGetLastError();
 }
 

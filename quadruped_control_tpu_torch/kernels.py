@@ -47,6 +47,7 @@ launch_counts = {"qct_fused_solve": 0, "qct_assemble": 0,
                  "qct_commander_pre": 0, "qct_commander_serial": 0,
                  "qct_substep": 0,
                  "qct_substep_serial": 0, "qct_mpc_riccati": 0,
+                 "qct_mpc_serial": 0,
                  "qct_dense_barrier": 0, "qct_dense_polish": 0}
 
 # The compiler's resource report (-Xptxas -v) of the build this process made
@@ -439,6 +440,9 @@ def load():
             lib.qct_mpc_riccati.argtypes = [vp] * 10 + [
                 ci, ci, ci, ci, ctypes.POINTER(MpcParams), vp]
             lib.qct_mpc_riccati.restype = ci
+            lib.qct_mpc_serial.argtypes = [vp] * 10 + [
+                ci, ctypes.POINTER(MpcParams), vp]
+            lib.qct_mpc_serial.restype = ci
             lib.qct_mpc_layout.argtypes = [vp]
             lib.qct_mpc_layout.restype = ci
             lib.qct_fused_layout.argtypes = [vp]
@@ -708,15 +712,9 @@ def substep_serial(state, extras, factor, params, n_substeps, h):
     return out
 
 
-def mpc_riccati(block, yaw, phys, warm, params, n_steps):
-    """Launch the MPC kernel (K6) once on ``(k, B)`` CUDA tensors: ``block``
-    (25 + 17N, B) = xi0 | levers | schedule | reference; ``yaw`` (B,) or
-    None (then xi0[2]); ``phys`` (7, B) = [m, Ib, mu, fz_min, fz_max] or None
-    (then the constants of ``params``); ``warm`` None or (F (12N, B), [s | z]
-    (48N, B), schedule (4N, B)). ``params`` is an :class:`MpcParams` (see
-    :func:`mpc_params`). Returns (F (12N, B), diag (6, B), [s | z | F] (60N,
-    B) or None). The kernel's scratch, 324 N words per robot slot of the
-    grid, is allocated here; the launch takes :func:`mpc_launch_geometry`."""
+def _mpc_args(block, yaw, phys, warm, params, n_steps):
+    """Check K6's tensors; returns (N, B, device, F, diag, warm_out, the
+    pointers of yaw, phys and warm)."""
     N = int(n_steps)
     if params.n_steps != N:
         raise ValueError(f"params are for N = {params.n_steps}, not {N}")
@@ -736,27 +734,64 @@ def mpc_riccati(block, yaw, phys, warm, params, n_steps):
         for name, a, k in zip(("warm F", "warm sz", "warm schedule"), warm,
                               (12 * N, 48 * N, 4 * N)):
             _require_cuda(name, a, k, B, device)
-    lib = load()
-    geo = mpc_launch_geometry(B, mpc_layout())
     F = torch.empty((12 * N, B), dtype=torch.float32, device=device)
     diag = torch.empty((6, B), dtype=torch.float32, device=device)
     wout = (None if warm is None else
             torch.empty((60 * N, B), dtype=torch.float32, device=device))
+    ptrs = ([None if yaw is None else yaw.data_ptr(),
+             None if phys is None else phys.data_ptr()]
+            + ([None] * 3 if warm is None else [a.data_ptr() for a in warm]))
+    return N, B, device, F, diag, wout, ptrs
+
+
+def mpc_riccati(block, yaw, phys, warm, params, n_steps):
+    """Launch the MPC kernel (K6) once on ``(k, B)`` CUDA tensors: ``block``
+    (25 + 17N, B) = xi0 | levers | schedule | reference; ``yaw`` (B,) or
+    None (then xi0[2]); ``phys`` (7, B) = [m, Ib, mu, fz_min, fz_max] or None
+    (then the constants of ``params``); ``warm`` None or (F (12N, B), [s | z]
+    (48N, B), schedule (4N, B)). ``params`` is an :class:`MpcParams` (see
+    :func:`mpc_params`). Returns (F (12N, B), diag (6, B), [s | z | F] (60N,
+    B) or None). The kernel's scratch, 324 N words per robot slot of the
+    grid, is allocated here; the launch takes :func:`mpc_launch_geometry`."""
+    N, B, device, F, diag, wout, ptrs = _mpc_args(block, yaw, phys, warm,
+                                                  params, n_steps)
+    lib = load()
+    geo = mpc_launch_geometry(B, mpc_layout())
     scratch = torch.empty((geo.blocks * geo.robots_per_block,
                            MPC_WORDS_PER_STEP * N), dtype=torch.float32,
                           device=device)
-    wptr = [None] * 3 if warm is None else [a.data_ptr() for a in warm]
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.qct_mpc_riccati(
-            block.data_ptr(), None if yaw is None else yaw.data_ptr(),
-            None if phys is None else phys.data_ptr(), *wptr,
-            F.data_ptr(), diag.data_ptr(),
+            block.data_ptr(), *ptrs, F.data_ptr(), diag.data_ptr(),
             None if wout is None else wout.data_ptr(), scratch.data_ptr(),
             B, geo.blocks, geo.threads, geo.shared_bytes,
             ctypes.byref(params), stream)
     _check(lib, rc, "qct_mpc_riccati")
     launch_counts["qct_mpc_riccati"] += 1
+    return F, diag, wout
+
+
+def mpc_serial(block, yaw, phys, warm, params, n_steps):
+    """Launch K6's serial body (``qct_mpc_serial``: one robot per thread,
+    the arithmetic of the kernel before its lane split) on the arguments of
+    :func:`mpc_riccati`, with the same return. No path of the port calls
+    it: ``chip_smoke.py`` holds the lane kernel bitwise to it. Its scratch
+    is (324 N, B), component-major. Counted under
+    ``launch_counts["qct_mpc_serial"]``."""
+    N, B, device, F, diag, wout, ptrs = _mpc_args(block, yaw, phys, warm,
+                                                  params, n_steps)
+    lib = load()
+    scratch = torch.empty((MPC_WORDS_PER_STEP * N, B), dtype=torch.float32,
+                          device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.qct_mpc_serial(
+            block.data_ptr(), *ptrs, F.data_ptr(), diag.data_ptr(),
+            None if wout is None else wout.data_ptr(), scratch.data_ptr(),
+            B, ctypes.byref(params), stream)
+    _check(lib, rc, "qct_mpc_serial")
+    launch_counts["qct_mpc_serial"] += 1
     return F, diag, wout
 
 

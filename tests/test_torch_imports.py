@@ -1,5 +1,6 @@
-"""PyTorch port: the package and chip_smoke.py import neither jax nor the JAX
-package (checked on the syntax tree, so lazy imports count too)."""
+"""PyTorch port: the package, its scripts (scripts/torch_*.py) and
+chip_smoke.py import neither jax nor the JAX package (checked on the syntax
+tree, so lazy imports count too)."""
 
 import ast
 from pathlib import Path
@@ -10,7 +11,8 @@ ROOT = Path(__file__).resolve().parent.parent
 FILES = sorted(
     str(p.relative_to(ROOT))
     for p in (ROOT / "quadruped_control_tpu_torch").rglob("*.py")
-) + ["chip_smoke.py"]
+) + sorted(str(p.relative_to(ROOT))
+           for p in (ROOT / "scripts").glob("torch_*.py")) + ["chip_smoke.py"]
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "quadruped_control_tpu")
 
@@ -59,7 +61,11 @@ def test_port_has_the_expected_modules():
                 "solver/fused_ipm.py",
                 # the SRB plant and rollouts, loaders, gradients
                 "control/plant.py", "yaml_config.py", "native.py",
-                "solver/admm.py", "solver/diff.py"):
+                "solver/admm.py", "solver/diff.py",
+                # sharding, the entry points, checkpoint / profiling / viz
+                "parallel/__init__.py", "parallel/mesh.py",
+                "parallel/distributed.py", "entry.py",
+                "utils/checkpoint.py", "utils/profiling.py", "utils/viz.py"):
         assert f"quadruped_control_tpu_torch/{rel}" in have
     csrc = ROOT / "quadruped_control_tpu_torch" / "csrc"
     assert sorted(p.name for p in csrc.glob("*.cu")) == [
@@ -79,7 +85,7 @@ def test_every_kernel_source_is_built_and_counted():
     assert set(kernels.launch_counts) == {
         "qct_fused_solve", "qct_assemble", "qct_commander_pre",
         "qct_commander_serial", "qct_substep", "qct_substep_serial",
-        "qct_mpc_riccati",
+        "qct_mpc_riccati", "qct_mpc_serial",
         "qct_dense_barrier", "qct_dense_polish"}
     kernels.reset_launch_counts()
     assert not any(kernels.launch_counts.values())

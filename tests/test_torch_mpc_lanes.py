@@ -8,7 +8,10 @@ sync between the two, would make the result depend on the lanes' timing.
 The serial host build (tests/torch_port_host_shim.cpp) runs the lanes of a
 section one after the other; built with the lanes ascending and descending
 (-DQCT_REVERSE_LANES) it must give the same bits, which holds a read across
-lanes inside one section. The lane-program build (-DQCT_LANE_PROGRAM) runs
+lanes inside one section. The serial build's lanes must also give the bits
+of K6's serial body (csrc/qct_mpc_serial.cuh, one robot per thread, the
+arithmetic the lane split keeps element by element), which the card holds
+the lane kernel to as well. The lane-program build (-DQCT_LANE_PROGRAM) runs
 a warp's 32 lanes as the card does, each from sync to sync on its own, in
 both orders: a missing sync shows there too, and so do lanes that do not
 wait at the same sync. The launch geometry (kernels.mpc_launch_geometry) is
@@ -114,6 +117,42 @@ def _run(host, block, warm, st, B, yaw=None, phys=None):
     return F, diag, wout
 
 
+def _run_serial(host, block, warm, st, B, yaw=None, phys=None):
+    """K6's serial body (host_mpc_serial) on the arguments of :func:`_run`;
+    its scratch is (324 N, B), NaN where nothing has written yet."""
+    N = st.n_steps
+    lib = host[1]
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.host_mpc_serial.argtypes = [vp] * 10 + [
+        ci, ctypes.POINTER(kernels.MpcParams)]
+    lib.host_mpc_serial.restype = None
+    F = torch.empty((12 * N, B))
+    diag = torch.empty((6, B))
+    wout = torch.empty((60 * N, B))
+    scratch = torch.full((kernels.MPC_WORDS_PER_STEP * N, B), float("nan"))
+    wp = [None] * 3 if warm is None else [a.data_ptr() for a in warm]
+    lib.host_mpc_serial(block.data_ptr(),
+                        None if yaw is None else yaw.data_ptr(),
+                        None if phys is None else phys.data_ptr(), *wp,
+                        F.data_ptr(), diag.data_ptr(), wout.data_ptr(),
+                        scratch.data_ptr(), B, ctypes.byref(st.params()))
+    return F, diag, wout
+
+
+def _unpacked_args(B):
+    """Per-robot yaw and constants (the unpacked entry's inputs)."""
+    rng = np.random.default_rng(5)
+    bal = CFG.balance
+    yaw = torch.as_tensor(0.3 * rng.standard_normal(B), dtype=torch.float32)
+    phys = torch.as_tensor(np.stack(
+        [bal.mass * rng.uniform(0.8, 1.2, B),
+         *(np.asarray(bal.inertia_diag)[:, None]
+           * rng.uniform(0.8, 1.2, (3, B))),
+         rng.uniform(0.5, 1.0, B), np.full(B, bal.fz_min),
+         np.full(B, bal.fz_max)]), dtype=torch.float32).contiguous()
+    return yaw, phys
+
+
 def _settings(N, mdt, iterations):
     bal = CFG.balance
     return fr.MpcSettings(n_steps=N, dt=mdt, iterations=iterations,
@@ -175,18 +214,7 @@ def test_mpc_warp_lanes_meet_and_agree(hosts, N, mdt, iterations, warm,
     B = 5
     st = _settings(N, mdt, iterations)
     block = _block(43, B, N, mdt)
-    yaw = phys = None
-    if unpacked:
-        rng = np.random.default_rng(5)
-        bal = CFG.balance
-        yaw = torch.as_tensor(0.3 * rng.standard_normal(B),
-                              dtype=torch.float32)
-        phys = torch.as_tensor(np.stack(
-            [bal.mass * rng.uniform(0.8, 1.2, B),
-             *(np.asarray(bal.inertia_diag)[:, None]
-               * rng.uniform(0.8, 1.2, (3, B))),
-             rng.uniform(0.5, 1.0, B), np.full(B, bal.fz_min),
-             np.full(B, bal.fz_max)]), dtype=torch.float32).contiguous()
+    yaw, phys = _unpacked_args(B) if unpacked else (None, None)
     w = _warm(hosts["ascending"], block, st, B) if warm else None
     serial = _run(hosts["ascending"], block, w, st, B, yaw, phys)
     for name in ("warp", "warp_reversed"):
@@ -194,6 +222,32 @@ def test_mpc_warp_lanes_meet_and_agree(hosts, N, mdt, iterations, warm,
                         name)
     assert bool(torch.isfinite(serial[0][:, [0, 1, 2, 4]]).all())
     assert float(serial[1][0, 3]) == 0.0  # the poisoned robot
+
+
+@pytest.mark.parametrize(
+    "N,mdt,iterations,warm,unpacked",
+    [(8, 0.03, 8, True, False), (8, 0.03, 15, False, False),
+     (24, 0.02, 25, False, False), (3, 0.03, 6, False, True)],
+    ids=["N8-warm", "N8-cold15", "N24-cold", "N3-unpacked"])
+def test_mpc_lane_body_is_its_serial_body(hosts, N, mdt, iterations, warm,
+                                          unpacked):
+    """B = 37 robots (robot 3 poisoned with a NaN): the lane body's forces, diag
+    and warm carry are bitwise those of K6's serial body, one robot per
+    thread (qct_mpc_serial): warm-8 from a cold carry with a third of the
+    schedule bits flipped, cold-15, N = 24 without best-iterate tracking,
+    and the unpacked entry with per-robot yaw and constants. The card holds
+    the two kernels the same way (chip_smoke.py phases 10, 11 and 17)."""
+    B = 37
+    st = _settings(N, mdt, iterations)
+    block = _block(47, B, N, mdt)
+    yaw, phys = _unpacked_args(B) if unpacked else (None, None)
+    w = _warm(hosts["ascending"], block, st, B) if warm else None
+    lanes = _run(hosts["ascending"], block, w, st, B, yaw, phys)
+    serial = _run_serial(hosts["ascending"], block, w, st, B, yaw, phys)
+    _assert_bitwise(lanes, serial, "serial body")
+    assert float(lanes[1][0, 3]) == 0.0  # the poisoned robot
+    others = [i for i in range(B) if i != 3]
+    assert bool(torch.isfinite(lanes[0][:, others]).all())
 
 
 @pytest.mark.parametrize("B", [1, 3, 37, 4095, 4096, 4097])

@@ -1,6 +1,6 @@
 // Host build of the per-instance bodies of the CUDA kernels (quadruped_
-// control_tpu_torch/csrc/: qct_commander.cuh, qct_substep.cuh, qct_mpc.cuh,
-// qct_dense_ipm.cuh and the fused GRF-QP kernel's qct_fused.cuh), looped
+// control_tpu_torch/csrc/: qct_commander.cuh, qct_substep.cuh, qct_mpc.cuh
+// and K6's serial body qct_mpc_serial.cuh, qct_dense_ipm.cuh and the fused GRF-QP kernel's qct_fused.cuh), looped
 // over the batch (and the lane-group kernels' lanes over each robot or QP)
 // by a plain C++ compiler (-ffp-contract=off), so that the kernels'
 // arithmetic can be held against the plain PyTorch versions on a machine
@@ -66,6 +66,7 @@ static inline void qc_host_store(float* p, float v) {
 #include "qct_dense_ipm.cuh"
 #include "qct_fused.cuh"
 #include "qct_mpc.cuh"
+#include "qct_mpc_serial.cuh"
 #include "qct_substep.cuh"
 
 extern "C" void host_commander_pre(const float* state, const float* carry,
@@ -121,6 +122,19 @@ extern "C" void host_substep_serial(const float* state, const float* a,
   QctSubIO io = {state, a, tau_sw, st, factor, out};
   for (int i = 0; i < B; ++i)
     substep_instance_serial(io, B, i, n_substeps, h, *params);
+}
+
+// K6's serial body (one robot per thread), the reference of its lane body;
+// scratch (324 N, B).
+extern "C" void host_mpc_serial(const float* block, const float* yaw,
+                                const float* phys, const float* warm_F,
+                                const float* warm_sz, const float* warm_sched,
+                                float* F, float* diag, float* warm_out,
+                                float* scratch, int B,
+                                const QctMpcParams* params) {
+  QctMpcIO io = {block, yaw,  phys, warm_F,   warm_sz,
+                 warm_sched, F, diag, warm_out, scratch};
+  for (int i = 0; i < B; ++i) qmpc_serial::mpc_instance(io, B, i, *params);
 }
 
 #ifndef QCT_LANE_PROGRAM
